@@ -3,7 +3,7 @@
 
 Parity item for the reference's ``train/ddpg/test.py`` (a tianshou DQN on
 CartPole used purely as a collector/trainer API demo — SURVEY §2.10).  Here
-the same demo is TPU-native: CartPole dynamics as a pure jitted step (classic
+the same demo runs as one program: CartPole dynamics as a pure jitted step (classic
 Barto-Sutton cart-pole equations), vectorized envs, device replay buffer, and
 a DQN update — all in one compiled program per iteration.
 

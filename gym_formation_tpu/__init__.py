@@ -1,13 +1,13 @@
-"""gym_formation_tpu — TPU-native multi-agent formation-control framework.
+"""gym_formation_tpu — multi-agent formation-control framework in JAX.
 
-A from-scratch JAX/XLA rebuild of the capabilities of ``jc-bao/gym-formation``
-(reference mounted at ``/root/reference``): the MPE point-mass world, five
+A from-scratch JAX/XLA rebuild of the capabilities of ``jc-bao/gym-formation``:
+the MPE point-mass world, five
 formation scenarios, scripted + hierarchical policies, and MAPPO/MADDPG
 learners — all as pure jitted functions vmapped over thousands of lockstep
 environments and sharded over a ``jax.sharding.Mesh``.
 
-Facade mirrors ``formation_gym`` (``/root/reference/formation_gym/__init__.py``):
-``make_env``, ``ezpolicy``, ``get_action_BFS``, plus the TPU-native vectorized
+Facade mirrors ``formation_gym`` (the reference's ``formation_gym/__init__.py``):
+``make_env``, ``ezpolicy``, ``get_action_BFS``, plus the vectorized
 entry points.
 """
 
@@ -19,8 +19,6 @@ from .env import (
     rollout,
     rollout_statepolicy,
     rollout_statepolicy_rewardsum,
-    rollout_statepolicy_fused,
-    rollout_statepolicy_fused_sharded,
     rollout_stateonly,
 )
 from .envs import SCENARIOS, generate_shape, make_scenario, register
@@ -74,7 +72,7 @@ def make_vec_env(
     sharding=None,
     **scenario_kwargs,
 ) -> VecFormationEnv:
-    """Build a vectorized env batch — the TPU-native replacement for the
+    """Build a vectorized env batch — the single-program replacement for the
     reference's SubprocVecEnv worker fleets (SURVEY §2.11)."""
     env = make_env(
         scenario_name, benchmark=benchmark, num_agents=num_agents, **scenario_kwargs
@@ -99,8 +97,6 @@ __all__ = [
     "rollout",
     "rollout_statepolicy",
     "rollout_statepolicy_rewardsum",
-    "rollout_statepolicy_fused",
-    "rollout_statepolicy_fused_sharded",
     "rollout_stateonly",
     "generate_shape",
     "ezpolicy",

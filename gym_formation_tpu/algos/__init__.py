@@ -1,38 +1,42 @@
-from .mappo import MAPPO, MAPPOConfig, MAPPOState, ValueNorm
-from .maddpg import MADDPG, MADDPGConfig, MADDPGState, ReplayBuffer
-from .matd3 import MATD3, MATD3Config
-from .masac import MASAC, MASACConfig, MASACState
-from .qmix import QMix, QMixConfig, QMixState
-from .rmappo import RMAPPO, RMAPPOConfig, RunnerCarry
-from .rmaddpg import RMADDPG, RMADDPGConfig, EpisodeBuffer
-from .rqmix import RQMix, RQMixConfig
-from .rmasac import RMASAC, RMASACConfig
+"""The learners.  Each is imported on first use, so that importing one (for
+example ``gym_formation_tpu.algos.mappo``) loads neither the others nor
+``flax``, which only the off-policy and recurrent learners need."""
 
-__all__ = [
-    "MAPPO",
-    "MAPPOConfig",
-    "MAPPOState",
-    "ValueNorm",
-    "MADDPG",
-    "MADDPGConfig",
-    "MADDPGState",
-    "ReplayBuffer",
-    "MATD3",
-    "MATD3Config",
-    "MASAC",
-    "MASACConfig",
-    "MASACState",
-    "QMix",
-    "QMixConfig",
-    "QMixState",
-    "RMAPPO",
-    "RMAPPOConfig",
-    "RunnerCarry",
-    "RMADDPG",
-    "RMADDPGConfig",
-    "EpisodeBuffer",
-    "RQMix",
-    "RQMixConfig",
-    "RMASAC",
-    "RMASACConfig",
-]
+import importlib
+
+_WHERE = {
+    "MAPPO": "mappo",
+    "MAPPOConfig": "mappo",
+    "MAPPOState": "mappo",
+    "ValueNorm": "mappo",
+    "MADDPG": "maddpg",
+    "MADDPGConfig": "maddpg",
+    "MADDPGState": "maddpg",
+    "ReplayBuffer": "maddpg",
+    "MATD3": "matd3",
+    "MATD3Config": "matd3",
+    "MASAC": "masac",
+    "MASACConfig": "masac",
+    "MASACState": "masac",
+    "QMix": "qmix",
+    "QMixConfig": "qmix",
+    "QMixState": "qmix",
+    "RMAPPO": "rmappo",
+    "RMAPPOConfig": "rmappo",
+    "RunnerCarry": "rmappo",
+    "RMADDPG": "rmaddpg",
+    "RMADDPGConfig": "rmaddpg",
+    "EpisodeBuffer": "rmaddpg",
+    "RQMix": "rqmix",
+    "RQMixConfig": "rqmix",
+    "RMASAC": "rmasac",
+    "RMASACConfig": "rmasac",
+}
+
+__all__ = list(_WHERE)
+
+
+def __getattr__(name):
+    if name not in _WHERE:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_WHERE[name]}", __name__), name)

@@ -4,11 +4,11 @@ centralized critic over all obs+actions, ε-greedy uniform exploration with
 Gaussian action noise, soft target updates; hyperparameters from
 ``common/arguments.py:9-39``).
 
-TPU-native design: the reference loops one env step and N sequential
+Design: the reference loops one env step and N sequential
 per-agent torch updates on CPU (``runner.py:31-54``); here all N agents'
 networks are ONE stacked parameter pytree (leading agent axis, built with
 ``vmap(init)``) and every update trains all agents simultaneously with a
-single vmapped gradient — the per-agent matmuls batch onto the MXU.  The
+single vmapped gradient — the per-agent matmuls batch into one product.  The
 replay buffer lives in device memory and env interaction + updates run in one
 jitted program.
 
@@ -27,16 +27,11 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
-from ..models.networks import (
-    CentralizedQCritic,
-    DeterministicActor,
-    LogitsActor,
-    gumbel_softmax_st,
-    onehot_from_logits,
-)
+from ..models.flax_networks import CentralizedQCritic, DeterministicActor
+from ..models.networks import LogitsActor, gumbel_softmax_st, onehot_from_logits
 
 Array = jnp.ndarray
 

@@ -3,8 +3,8 @@ scalable on-policy path (``/root/reference/train/mappo/train_formation.py``,
 tuned run ``train_formation.sh:13``: 128 rollout threads, episode_length 25,
 ppo_epoch 10, lr 7e-4, value normalization, shared policy).
 
-TPU-native design: the reference fans 128 env processes over pipes feeding a
-GPU learner; here rollout collection (a ``lax.scan`` over the vmapped env
+Design: the reference fans 128 env processes over pipes feeding a GPU
+learner; here rollout collection (a ``lax.scan`` over the vmapped env
 step) and the PPO update live in ONE jitted program, so the whole training
 iteration is a single XLA executable.  The env batch shards over the mesh
 'data' axis; gradients reduce over the mesh automatically via pjit.
@@ -20,7 +20,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
 from ..models.networks import (
@@ -62,50 +62,34 @@ class MAPPOConfig:
     # False = per-agent stacked params (the separated runner,
     # ``train/mappo/train_formation.py:146-151``)
     share_policy: bool = True
-    # Run the collection phase as ONE Pallas kernel (obs construction, actor
-    # + critic MLPs on the MXU, Gaussian sampling, physics, reward,
-    # auto-reset — ops/pallas/fused_collect.py).  formation_hd_env +
-    # continuous shared policy only; parity in tests/test_fused_collect.py.
-    # None = auto: ON when every precondition holds (hd scenario, shared
-    # continuous policy, auto-reset, num_envs % 512 == 0, TPU backend) —
-    # measured end-to-end wins of ~20-30% at B=1024, ~24% at B=2048 and
-    # ~11% at B=4096 in the interleaved one-process A/B (RESULTS.md
-    # round-4 table); True/False force.
-    fused_collect: Optional[bool] = None
     # Store O(N) state parts instead of the [T·B, N, 6N] observation tensor
     # and evaluate the actor/critic first layers factorized from them
     # (models/structured_obs.py — the hd observation is a linear repackaging
     # of state, so ``obs @ W`` needs no obs).  At N=243 this removes a
     # 4.5 GB trajectory tensor and ~45 G MACs/sample of first-layer work.
     # None = auto: ON for formation_hd_env + shared continuous policy +
-    # all-silent agents + N >= 32 (below that the obs is small and the
-    # fused-collect kernel is the better path); True/False force.
+    # all-silent agents + N >= 32 (below that the obs is small);
+    # True/False force.
     structured_obs: Optional[bool] = None
-    # Compute each PPO epoch's gradients in ONE Pallas kernel (fwd + handwritten
-    # bwd on the MXU, ops/pallas/fused_ppo_grad.py) instead of jax.grad's
-    # hundreds of small XLA kernels.  Continuous shared policy,
-    # num_minibatches=1 only; gradient parity in tests/test_fused_ppo_grad.py.
-    fused_update: bool = False
     # Split each minibatch gradient into this many sequentially-accumulated
     # chunks (a lax.scan; chunk grads are averaged — exact up to f32
     # reassociation).  Divides the update's activation-backprop memory by
-    # the chunk count at zero extra FLOPs: the lever for the N=243 B=2048
-    # HBM boundary (VERDICT r4 task 3).  Must divide rollout_len*num_envs/
-    # num_minibatches.
+    # the chunk count at zero extra FLOPs.  Must divide
+    # rollout_len*num_envs/num_minibatches.
     grad_accum: int = 1
     # Rematerialize the policy/critic forward in the update's backward
     # (jax.checkpoint around the loss forward): trades one extra forward
     # per epoch for not storing the [M, N, H] activations.  The alternative
-    # HBM lever to grad_accum; both measured in RESULTS.md r5.
+    # memory lever to grad_accum.
     remat: bool = False
     # Automatic entropy-coefficient targeting: learn a SIGNED coefficient
     # α by gradient descent on  α · (entropy − target); the bonus weight
     # is stop_grad(clip(α, ±alpha_max)).  Unlike SAC's α = exp(·) ≥ 0,
     # α may go NEGATIVE — an entropy *penalty* — because in this
     # environment the pg gradient itself drives σ up (saturated-noise
-    # bang-bang is locally attractive; r5 N=243 campaign) and a
+    # bang-bang is locally attractive in the N=243 runs) and a
     # non-negative bonus can only stop helping, never push back
-    # (measured: α → 0 while entropy kept climbing, RESULTS.md r5).
+    # (α → 0 while entropy kept climbing, RESULTS.md).
     # α is stored as params['log_alpha'] (same Adam, no state-structure
     # change, checkpoints stay compatible per-config).
     auto_entropy: bool = False
@@ -116,12 +100,14 @@ class MAPPOConfig:
     # (a diagonal Gaussian at σ = 0.5 per dim)
     entropy_target: Optional[float] = None
     # Run the structured actor's block einsums + MLP tail in bfloat16
-    # (distribution params return in f32): the r5 decomposition shows the
-    # N=243 update is 97% actor fwd+bwd, part HBM-bound on [M, N, H] f32
-    # activations — bf16 halves both the activation traffic and the MXU
-    # passes.  A training-math change (~3 decimal digits on h1), so
-    # default OFF; applied consistently to collection and update so the
-    # epoch-0 PPO ratio stays 1.  structured_obs path only.
+    # (distribution params return in f32): the N=243 update is mostly
+    # actor fwd+bwd, partly bound by memory traffic on [M, N, H] f32
+    # activations — bf16 halves that traffic and the matrix-unit work.
+    # A training-math change (~3 decimal digits on h1), so default OFF;
+    # applied consistently to collection and update so the epoch-0 PPO
+    # ratio stays 1.  structured_obs path only.  (The other f32 products of
+    # the learners take the device's default matmul precision, which on an
+    # H100 is TF32.)
     structured_bf16: bool = False
 
 
@@ -195,23 +181,8 @@ class MAPPO:
         else:
             self.actor = GaussianActor(self.act_dim, cfg.hidden)
         self.critic = ValueCritic(cfg.hidden)
-        fc = cfg.fused_collect
-        if fc is None:  # auto: on exactly where the preconditions hold
-            fc = (
-                env.scenario.name == "formation_hd_env"
-                and cfg.share_policy
-                and not self.discrete
-                and env.auto_reset
-                and not env.benchmark
-                and num_envs % 512 == 0
-                and jax.default_backend() == "tpu"
-            )
-        self.fused_collect = bool(fc)
         so = cfg.structured_obs
         if so is None:
-            # auto defers to an explicitly requested fused_update (the two
-            # are mutually exclusive; forcing structured_obs=True still
-            # asserts below — ADVICE r4)
             so = (
                 env.scenario.name == "formation_hd_env"
                 and cfg.share_policy
@@ -219,7 +190,6 @@ class MAPPO:
                 and env._all_silent
                 and env.scenario.obs_dim == 6 * self.n_agents
                 and self.n_agents >= 32
-                and not cfg.fused_update
             )
         self.structured_obs = bool(so)
         if self.structured_obs:
@@ -229,16 +199,6 @@ class MAPPO:
                 and not self.discrete
                 and env._all_silent
             ), "structured_obs needs the hd obs layout + shared continuous policy"
-            assert not cfg.fused_update, "structured_obs excludes fused_update"
-            self.fused_collect = False  # structured collection subsumes it
-        if cfg.fused_update:
-            assert cfg.grad_accum == 1 and not cfg.remat, (
-                "fused_update computes whole-batch gradients in one kernel; "
-                "grad_accum/remat apply to the jax.grad path only"
-            )
-            assert not cfg.auto_entropy, (
-                "auto_entropy needs the jax.grad update path"
-            )
         if cfg.auto_entropy:
             assert not self.discrete or cfg.entropy_target is not None, (
                 "set an explicit entropy_target for categorical policies"
@@ -257,8 +217,8 @@ class MAPPO:
     def init(self, key: Array):
         k_actor, k_critic, k_env = jax.random.split(key, 3)
 
-        # One jitted program for the whole init: eager flax/optax init is
-        # hundreds of per-op round trips on remote backends.
+        # One jitted program for the whole init instead of hundreds of
+        # eager per-op dispatches.
         @jax.jit
         def _init(ka, kc):
             obs0 = jnp.zeros((1, self.obs_dim))
@@ -288,7 +248,6 @@ class MAPPO:
             )
 
         ts = _init(k_actor, k_critic)
-        # jit: eager vmapped reset is pathological on remote backends
         env_state, obs = jax.jit(jax.vmap(self.env.reset))(
             jax.random.split(k_env, self.num_envs)
         )
@@ -353,7 +312,7 @@ class MAPPO:
             env_state, out = jax.vmap(self.env.step)(env_state, action)
             # share_obs is NOT stored: it is a reshape of obs, so the update
             # derives it from the minibatch (see _loss) instead of holding a
-            # second [T·B, N·do] copy of the same bytes in HBM — at N=243
+            # second [T·B, N·do] copy of the same bytes in device memory — at N=243
             # that copy alone is ~1.1 GB per 800-step trajectory and halved
             # the single-chip env ceiling (reference onpolicy's separate
             # share_obs buffer, train/mappo/train_formation.py:146-151, is a
@@ -383,52 +342,6 @@ class MAPPO:
             ts.params["critic"], obs.reshape(B, N * self.obs_dim)
         )
         return env_state, obs, traj, bench, last_value
-
-    def _collect_fused(self, ts: MAPPOState, env_state, obs, key):
-        """Fused-kernel collection: same trajectory contract as
-        :meth:`_collect`, with the whole per-step pipeline (obs → actor →
-        sample → physics → reward → reset) in one Pallas program and the
-        network weights VMEM-resident across the rollout.  The sampling
-        stream is the kernel's counter RNG (a different — equally valid —
-        draw of the same policy distribution than jax.random)."""
-        from ..ops.pallas.fused_collect import (
-            actor_planes,
-            critic_planes,
-            fused_collect_hd,
-        )
-        from ..ops.pallas.fused_rollout import soa_to_state, state_to_soa
-
-        scen = self.env.scenario
-        assert scen.name == "formation_hd_env", scen.name
-        assert self.cfg.share_policy and not self.discrete
-        assert self.env.auto_reset and not self.env.benchmark
-        B, N = self.num_envs, self.n_agents
-        block = 512 if B % 512 == 0 else B
-
-        key, k_seed, k_state = jax.random.split(key, 3)
-        seed = jax.random.randint(k_seed, (), 0, jnp.iinfo(jnp.int32).max)
-        soa, traj = fused_collect_hd(
-            state_to_soa(env_state),
-            actor_planes(ts.params["actor"]),
-            critic_planes(ts.params["critic"]),
-            seed,
-            length=self.cfg.rollout_len,
-            ep_len=self.env.world_length,
-            n=N,
-            block=block,
-            interpret=jax.default_backend() != "tpu",
-        )
-        env_state = soa_to_state(soa, env_state)
-        # fresh per-env keys: the kernel consumed its own stream; keep the
-        # XLA-side chain advancing for any later non-fused consumer
-        env_state = env_state.replace(
-            key=jax.random.split(k_state, B)
-        )
-        obs = jax.vmap(scen.observe)(env_state)
-        last_value = self._apply_critic(
-            ts.params["critic"], obs.reshape(B, N * self.obs_dim)
-        )
-        return env_state, obs, traj, {}, last_value
 
     def _parts(self, env_state):
         """O(N) state parts that linearly determine the hd observation."""
@@ -656,104 +569,6 @@ class MAPPO:
         metrics = jax.tree.map(jnp.mean, metrics)
         return ts, metrics
 
-    def _update_fused(self, ts: MAPPOState, data, key):
-        """PPO epochs with the fused gradient kernel: identical math to
-        :meth:`_update` (minus sample shuffling, a no-op at one minibatch),
-        with each epoch's full actor+critic gradient computed by one Pallas
-        program."""
-        from ..models.networks import gaussian_entropy, soft_bound
-        from ..ops.pallas.fused_ppo_grad import fused_ppo_grads
-
-        cfg = self.cfg
-        assert cfg.share_policy and not self.discrete
-        assert cfg.num_minibatches == 1
-        del key  # no permutation at a single minibatch
-
-        def epoch_fn(ts, _):
-            grads, metrics = self._fused_epoch_grads(ts.params, data)
-            updates, opt_state = self.tx.update(grads, ts.opt_state, ts.params)
-            params = optax.apply_updates(ts.params, updates)
-            return ts.replace(params=params, opt_state=opt_state), metrics
-
-        ts, metrics = jax.lax.scan(epoch_fn, ts, None, length=cfg.ppo_epochs)
-        return ts, jax.tree.map(jnp.mean, metrics)
-
-    def _fused_epoch_grads(self, params, data):
-        """One epoch's (grads, metrics) via the fused kernel — gradient-
-        matched to ``jax.grad(self._loss)`` (tests/test_fused_ppo_grad.py)."""
-        from ..models.networks import gaussian_entropy, soft_bound
-        from ..ops.pallas.fused_ppo_grad import fused_ppo_grads
-
-        cfg = self.cfg
-        M = cfg.rollout_len * self.num_envs
-        interp = jax.default_backend() != "tpu"
-        pa = params["actor"]["params"]
-        pc = params["critic"]["params"]
-        ls_raw = pa["log_std"]
-        ls_b = soft_bound(ls_raw, -5.0, 2.0)
-        f = lambda x: jnp.asarray(x, jnp.float32)
-        actor_ops = (
-            f(pa["MLP_0"]["Dense_0"]["kernel"]),
-            f(pa["MLP_0"]["Dense_0"]["bias"])[None],
-            f(pa["MLP_0"]["Dense_1"]["kernel"]),
-            f(pa["MLP_0"]["Dense_1"]["bias"])[None],
-            f(pa["Dense_0"]["kernel"]),
-            f(pa["Dense_0"]["bias"])[None],
-            f(ls_b)[None],
-        )
-        critic_ops = (
-            f(pc["MLP_0"]["Dense_0"]["kernel"]),
-            f(pc["MLP_0"]["Dense_0"]["bias"])[None],
-            f(pc["MLP_0"]["Dense_1"]["kernel"]),
-            f(pc["MLP_0"]["Dense_1"]["bias"])[None],
-            f(pc["Dense_0"]["kernel"]),
-            f(pc["Dense_0"]["bias"])[None],
-        )
-        ga, gc, met = fused_ppo_grads(
-            {k: data[k] for k in
-             ("obs", "action", "logp", "adv", "value", "target")},
-            actor_ops, critic_ops,
-            n_agents=self.n_agents, act_dim=self.act_dim,
-            clip_eps=cfg.clip_eps, huber_delta=cfg.huber_delta,
-            value_coef=cfg.value_coef, interpret=interp,
-        )
-        # entropy term: d(-ce·mean Σ_d ls_d)/d ls_d = -ce, then chain the
-        # soft_bound the actor applies to the raw parameter
-        d_ls_b = ga[6][0] - cfg.entropy_coef
-        _, vjp = jax.vjp(lambda p: soft_bound(p, -5.0, 2.0), ls_raw)
-        (d_ls_raw,) = vjp(d_ls_b.astype(ls_raw.dtype))
-        cast = lambda g, p: g.astype(jnp.asarray(p).dtype)
-        grads = {
-            "actor": {"params": {
-                "MLP_0": {
-                    "Dense_0": {"kernel": cast(ga[0], pa["MLP_0"]["Dense_0"]["kernel"]),
-                                "bias": cast(ga[1][0], pa["MLP_0"]["Dense_0"]["bias"])},
-                    "Dense_1": {"kernel": cast(ga[2], pa["MLP_0"]["Dense_1"]["kernel"]),
-                                "bias": cast(ga[3][0], pa["MLP_0"]["Dense_1"]["bias"])},
-                },
-                "Dense_0": {"kernel": cast(ga[4], pa["Dense_0"]["kernel"]),
-                            "bias": cast(ga[5][0], pa["Dense_0"]["bias"])},
-                "log_std": d_ls_raw,
-            }},
-            "critic": {"params": {
-                "MLP_0": {
-                    "Dense_0": {"kernel": cast(gc[0], pc["MLP_0"]["Dense_0"]["kernel"]),
-                                "bias": cast(gc[1][0], pc["MLP_0"]["Dense_0"]["bias"])},
-                    "Dense_1": {"kernel": cast(gc[2], pc["MLP_0"]["Dense_1"]["kernel"]),
-                                "bias": cast(gc[3][0], pc["MLP_0"]["Dense_1"]["bias"])},
-                },
-                "Dense_0": {"kernel": cast(gc[4], pc["Dense_0"]["kernel"]),
-                            "bias": cast(gc[5][0], pc["Dense_0"]["bias"])},
-            }},
-        }
-        metrics = {
-            "pg_loss": met[0] / (M * self.n_agents),
-            "v_loss": met[1] / M,
-            "entropy": jnp.mean(gaussian_entropy(ls_b)),
-            "approx_kl": met[2] / (M * self.n_agents),
-        }
-        return grads, metrics
-
     def _prepare(self, ts: MAPPOState, traj, last_value):
         """GAE + value-norm + flattening: turns a trajectory into the flat
         update batch (the phase between collect and the PPO epochs)."""
@@ -786,18 +601,12 @@ class MAPPO:
         """One full MAPPO iteration (collect + GAE + PPO epochs), jitted."""
         cfg = self.cfg
         k_roll, k_upd = jax.random.split(key)
-        if self.structured_obs:
-            collect = self._collect_structured
-        elif self.fused_collect:
-            collect = self._collect_fused
-        else:
-            collect = self._collect
+        collect = self._collect_structured if self.structured_obs else self._collect
         env_state, obs, traj, bench, last_value = collect(
             ts, env_state, obs, k_roll
         )
         ts, data = self._prepare(ts, traj, last_value)
-        update = self._update_fused if cfg.fused_update else self._update
-        ts, metrics = update(ts, data, k_upd)
+        ts, metrics = self._update(ts, data, k_upd)
         metrics["mean_step_reward"] = jnp.mean(traj["reward"])
         metrics.update({k: v.mean() for k, v in bench.items()})
         ts = ts.replace(update_i=ts.update_i + 1)

@@ -1,8 +1,8 @@
 """MASAC: multi-agent Soft Actor-Critic with centralized twin critics.
 
 Completes the continuous off-policy surface the reference reaches through the
-``offpolicy`` package (``/root/reference/train/maddpg-v5/train.py:41-56``:
-``masac``/``rmasac``).  Same TPU chassis as MADDPG (stacked per-agent params,
+``offpolicy`` package (``train/maddpg-v5/train.py:41-56``:
+``masac``/``rmasac``).  Same chassis as MADDPG (stacked per-agent params,
 device replay buffer, one jitted collect+update program); the SAC machinery —
 tanh-Gaussian reparameterized actor, twin Q minimum, automatic temperature
 tuned to −act_dim target entropy — follows Haarnoja et al. 2018.
@@ -18,11 +18,11 @@ import jax
 import jax.numpy as jnp
 import optax
 import flax.linen as nn
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
+from ..models.flax_networks import MLP
 from ..models.networks import (
-    MLP,
     LogitsActor,
     categorical_entropy,
     categorical_logp,

@@ -17,7 +17,8 @@ import jax
 import jax.numpy as jnp
 import flax.linen as nn
 
-from ..models.networks import CentralizedQCritic, gumbel_softmax_st
+from ..models.flax_networks import CentralizedQCritic
+from ..models.networks import gumbel_softmax_st
 from .maddpg import MADDPG, MADDPGConfig, MADDPGState
 
 Array = jnp.ndarray

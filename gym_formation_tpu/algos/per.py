@@ -6,7 +6,7 @@ Parity for the reference v4/v5 PER machinery
 anneal; flag surface in ``maddpg-v4/parameters.yaml`` and
 ``maddpg-v5/config.py``).
 
-TPU design: segment trees are a host-pointer structure; on accelerator the
+Design: segment trees are a host-pointer structure; on accelerator the
 priority vector is just an array and sampling is one categorical draw over
 ``p_i^α`` (a single fused softmax-free ``jax.random.categorical`` on raw
 log-priorities), with importance weights ``(N·P(i))^{-β}`` normalized by the
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from .maddpg import ReplayBuffer
 

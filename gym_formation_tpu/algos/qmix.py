@@ -6,7 +6,7 @@ Completes the discrete off-policy surface of the reference zoo
 soft/hard target updates).  Uses the env's 5-way discrete action head
 (``environment.py:64-65``).
 
-TPU design: one shared per-agent Q-network (agent-id one-hot appended to the
+Design: one shared per-agent Q-network (agent-id one-hot appended to the
 obs, the shared-policy trick of the reference's offpolicy/maddpg-v4 stack)
 applied to all agents in one batched matmul; the QMIX hypernetwork mixes the
 chosen Q's under the centralized state.  Collect + update is one jitted
@@ -24,10 +24,11 @@ import jax
 import jax.numpy as jnp
 import optax
 import flax.linen as nn
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
-from ..models.networks import MLP, orthogonal_init
+from ..models.flax_networks import MLP
+from ..models.networks import orthogonal_init
 from .maddpg import ReplayBuffer
 
 Array = jnp.ndarray

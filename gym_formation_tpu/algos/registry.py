@@ -51,11 +51,7 @@ def make_algo(
     convenience learning-rate override mapped to the right field name(s).
     """
     from ..utils.config import load_config
-    from . import (
-        MADDPG, MADDPGConfig, MAPPO, MAPPOConfig, MASAC, MASACConfig,
-        MATD3, MATD3Config, QMix, QMixConfig, RMADDPG, RMADDPGConfig,
-        RMAPPO, RMAPPOConfig, RMASAC, RMASACConfig, RQMix, RQMixConfig,
-    )
+    from .. import algos as A  # attribute access imports one learner
 
     if name not in ALGO_NAMES:
         raise ValueError(f"unknown algorithm {name!r}; choose from {ALGO_NAMES}")
@@ -68,35 +64,35 @@ def make_algo(
         return load_config(cls, config_yaml, [*base, *extra, *sets])
 
     if name == "mappo":
-        return MAPPO(env, cfg_of(MAPPOConfig, lr1), num_envs=num_envs)
+        return A.MAPPO(env, cfg_of(A.MAPPOConfig, lr1), num_envs=num_envs)
     if name == "rmappo":
-        return RMAPPO(env, cfg_of(RMAPPOConfig, lr1), num_envs=num_envs)
+        return A.RMAPPO(env, cfg_of(A.RMAPPOConfig, lr1), num_envs=num_envs)
     if name in ("maddpg", "ddpg"):
-        return MADDPG(
+        return A.MADDPG(
             env,
-            cfg_of(MADDPGConfig, lr2, [f"centralized={name == 'maddpg'}"]),
+            cfg_of(A.MADDPGConfig, lr2, [f"centralized={name == 'maddpg'}"]),
             num_envs=num_envs,
         )
     if name == "matd3":
-        return MATD3(env, cfg_of(MATD3Config, lr2), num_envs=num_envs)
+        return A.MATD3(env, cfg_of(A.MATD3Config, lr2), num_envs=num_envs)
     if name == "masac":
-        return MASAC(env, cfg_of(MASACConfig, lr1), num_envs=num_envs)
+        return A.MASAC(env, cfg_of(A.MASACConfig, lr1), num_envs=num_envs)
     if name in ("rmaddpg", "rmatd3"):
-        return RMADDPG(
+        return A.RMADDPG(
             env,
-            cfg_of(RMADDPGConfig, lr2, [f"twin={name == 'rmatd3'}"]),
+            cfg_of(A.RMADDPGConfig, lr2, [f"twin={name == 'rmatd3'}"]),
             num_envs=num_envs,
         )
     if name == "rmasac":
-        return RMASAC(env, cfg_of(RMASACConfig, lr1), num_envs=num_envs)
+        return A.RMASAC(env, cfg_of(A.RMASACConfig, lr1), num_envs=num_envs)
     if name in ("rqmix", "rvdn"):
-        return RQMix(
-            env, cfg_of(RQMixConfig, [], [f"mixer={name[1:]}", *lr1]),
+        return A.RQMix(
+            env, cfg_of(A.RQMixConfig, [], [f"mixer={name[1:]}", *lr1]),
             num_envs=num_envs,
         )
     # qmix / vdn (MLP variants)
-    return QMix(
-        env, cfg_of(QMixConfig, [], [f"mixer={name}", *lr1]), num_envs=num_envs
+    return A.QMix(
+        env, cfg_of(A.QMixConfig, [], [f"mixer={name}", *lr1]), num_envs=num_envs
     )
 
 

@@ -5,7 +5,7 @@ The reference's recurrent off-policy set (``rmaddpg``/``rmatd3``/``rmasac``,
 with ``data_chunk_length`` 80 BPTT chunks, ``config.py:89-90``) trains GRU
 policies from a buffer of whole episodes.
 
-TPU design: episodes are collected by a ``lax.scan`` over the vmapped env (one
+Design: episodes are collected by a ``lax.scan`` over the vmapped env (one
 episode per env per collect call, hidden states zeroed at the start) into an
 episode-major device buffer [cap, T, ...]; updates sample episode batches and
 BPTT-scan actor GRUs over the full episode, with the centralized (optionally
@@ -22,12 +22,11 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
-from ..models.networks import GRUPolicy
+from ..models.flax_networks import CentralizedQCritic, GRUPolicy
 from .matd3 import TwinQCritic
-from ..models.networks import CentralizedQCritic
 
 Array = jnp.ndarray
 

@@ -6,7 +6,7 @@ The reference's tuned configuration is ``--algorithm_name rmappo``
 chunks (documented in ``train/mappo/inbox/config.py``; the offpolicy zoo uses
 chunk length 80, ``train/maddpg-v5/config.py:89-90``).
 
-TPU design: the rollout scan threads GRU carries alongside env state (carries
+Design: the rollout scan threads GRU carries alongside env state (carries
 zeroed at episode starts *inside* the jit), and the PPO update BPTT-scans
 fixed-length chunks whose initial hidden states were recorded during
 collection — every step is static-shaped and the whole iteration remains one
@@ -21,10 +21,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
-from ..models.networks import GRUCritic, GRUPolicy
+from ..models.flax_networks import GRUCritic, GRUPolicy
 from .mappo import MAPPO, MAPPOConfig, MAPPOState, ValueNorm, huber
 
 Array = jnp.ndarray

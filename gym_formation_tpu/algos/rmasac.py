@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 import optax
 import flax.linen as nn
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
 from ..models.networks import orthogonal_init

@@ -20,10 +20,11 @@ import jax
 import jax.numpy as jnp
 import optax
 import flax.linen as nn
-from flax import struct
+from ..core import struct
 
 from ..env import FormationEnv, benchmark_means
-from ..models.networks import MLP, orthogonal_init
+from ..models.flax_networks import MLP
+from ..models.networks import orthogonal_init
 from .qmix import QMixer
 from .rmaddpg import EpisodeBuffer
 

@@ -1,11 +1,11 @@
 """Vectorized MPE point-mass physics.
 
-TPU-native rewrite of the reference world step
-(``/root/reference/formation_gym/core.py:205-362``).  The reference walks an
-O(E²) Python double loop over entity pairs per step; here the whole step is a
-handful of dense [E,E] tensor ops on one environment, ``jax.vmap``-ed over the
-env batch by the caller, so XLA fuses the entire step into a few kernels and
-the batch axis maps onto the VPU lanes / mesh shards.
+A rewrite of the reference world step (``formation_gym/core.py:205-362``).
+The reference walks an O(E²) Python double loop over entity pairs per step;
+here the whole step is a handful of dense [E,E] tensor ops on one
+environment, ``jax.vmap``-ed over the env batch by the caller, so XLA fuses
+the entire step into a few kernels and the batch axis maps onto the mesh
+shards.
 
 All functions are pure: ``(pos, vel, u, key) -> (pos, vel)`` with the static
 :class:`~gym_formation_tpu.core.types.WorldCfg` closed over.
@@ -19,23 +19,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from ..ops import dispatch
 from .types import WorldCfg, WallCfg
 
 Array = jnp.ndarray
-
-# Pallas pair-force dispatch.  In an ISOLATED microbench at E=486, B=1024 the
-# pure-XLA direct-delta path wins (0.038 ms vs 0.335 ms — XLA fuses the
-# [E,E,2] delta production into the reductions).  In the FULL rollout program
-# the picture flips: with reward/obs pipelines competing for HBM, the XLA
-# path's [B,E,E] intermediates materialize, and the fused kernel wins at
-# every measured batch (N=243 bfs_state rollout, v5e: B=1024 118M vs 109M
-# steps/s; B=2048 269M vs 255M; B=8192 fits only with Pallas — XLA needs
-# 18.7G of 15.75G HBM).  'auto' therefore picks the Pallas kernel on TPU for
-# large entity counts; 'on' forces it (interpret mode off-TPU for tests),
-# 'off' forces XLA.
-_PALLAS_MODE = "auto"
-_PALLAS_MIN_ENTITIES = 128
-
 
 class _DispatchCache:
     """Bounded LRU for the per-cfg custom-vmap wrappers.
@@ -74,92 +61,12 @@ class _DispatchCache:
 
 _pallas_fns = _DispatchCache()
 
-# Kernel implementation selector: 'dense' = ops/pallas/pairforce.py (every
-# pair evaluated), 'cull' = ops/pallas/pairforce_cull.py (Morton-sorted tiles,
-# pair math skipped for tile pairs provably beyond the contact cutoff).
-# Both are parity-tested against the f64 oracle in tests/test_pallas.py.
-# 'auto' picks dense: measured on v5e at the N=243 BASELINE density (E=486,
-# B=1024) the cull kernel LOSES 9x (35.1 ms vs dense 3.9 ms) — its per-call
-# Morton argsort + gather/unsort wrapper alone costs 16.9 ms, and the
-# any-over-128-env-lanes bounding-box predicate only skips 21% of 32-entity
-# tiles (40% at 8) because env layouts are independent, so the >99%
-# per-env-pair sparsity never materializes at tile granularity.  The lever
-# that does pay is exact and static: only entities with collide=True
-# participate (landmarks don't in the hd scenarios), so collision_forces
-# statically restricts the pair computation to that subset — 4x fewer pairs
-# at N=243 with no sort, no gather, bit-neutral (see _collide_subset).
-_PALLAS_IMPL = "auto"
-
-
-def set_pallas_mode(mode: str) -> None:
-    assert mode in ("auto", "on", "off")
-    global _PALLAS_MODE
-    _PALLAS_MODE = mode
-    _pallas_fns.clear()
-
-
-def set_pallas_impl(impl: str) -> None:
-    assert impl in ("auto", "dense", "cull", "sym")
-    global _PALLAS_IMPL
-    _PALLAS_IMPL = impl
-    _pallas_fns.clear()
-
-
-# Reward-stats kernel selector (envs/formation_hd.py:_hd_stats): 'rowmajor' =
-# ops/pallas/reward.py ([Bt, Np] lanes-on-N layout), 'sym' =
-# ops/pallas/reward_sym.py (transposed [N, B] lanes-on-envs layout, triangle-
-# swept collision plane).  'auto' picks sym: measured faster on v5e at the
-# N=243 BASELINE shape (see RESULTS.md round-4 reward-kernel A/B).
-_REWARD_IMPL = "auto"
-
-
-def set_reward_impl(impl: str) -> None:
-    assert impl in ("auto", "rowmajor", "sym")
-    global _REWARD_IMPL
-    _REWARD_IMPL = impl
-    _pallas_fns.clear()
-
-
-def _pallas_kernel_fn(cfg: WorldCfg):
-    if _PALLAS_IMPL == "cull":
-        from ..ops.pallas import collision_forces_culled
-
-        return collision_forces_culled
-    from ..ops.pallas import collision_forces_batched, collision_forces_sym
-    from ..ops.pallas.pairforce_sym import sym_applicable
-
-    if _PALLAS_IMPL == "sym":
-        # forced: the specialization is exact only on its envelope — a silent
-        # dense fallback would let a forced-sym benchmark time dense while
-        # labeled sym (ADVICE r3)
-        assert sym_applicable(cfg), (
-            "set_pallas_impl('sym') forced on a cfg outside the sym kernel's "
-            "exactness envelope (needs uniform mass/size, all collide+movable)"
-        )
-        return collision_forces_sym
-    if _PALLAS_IMPL == "auto" and sym_applicable(cfg):
-        # Newton's-third-law triangle kernel: measured faster than dense on
-        # v5e at the N=243 hd subset (see RESULTS.md pair-force A/B); exact
-        # only for uniform all-colliding subsets, checked by sym_applicable.
-        return collision_forces_sym
-    return collision_forces_batched
-
-
-def _pallas_wanted(cfg: WorldCfg) -> bool:
-    if not cfg.nan_guard:
-        return False
-    if _PALLAS_MODE == "on":
-        return True
-    # auto: eligibility by size only; the TPU-vs-other choice is made per
-    # lowering platform (lax.platform_dependent in the vmap rule), so inputs
-    # committed to CPU on a TPU-default machine still take the XLA path
-    return _PALLAS_MODE == "auto" and cfg.n_entities >= _PALLAS_MIN_ENTITIES
-
 
 def _collision_forces_dispatch(cfg: WorldCfg):
     """Per-cfg custom-vmap wrapper: the unbatched call lowers to the XLA
-    path; a vmap over the env batch dispatches to the fused Pallas kernel
-    (when eligible) so the [E,E] weight matrix never touches HBM."""
+    path; a vmap over the env batch goes through :func:`ops.dispatch.choose`,
+    which may pick the GPU pair kernel (ops/gpu/pairwise.py), so the
+    [B, E, E] weight planes never reach device memory."""
     key = id(cfg)
     hit = _pallas_fns.get(key)
     if hit is not None and hit[0] is cfg:
@@ -172,30 +79,24 @@ def _collision_forces_dispatch(cfg: WorldCfg):
     @fn.def_vmap
     def _rule(axis_size, in_batched, pos_b):
         del axis_size
-        eligible = (
-            _pallas_wanted(cfg)
-            and pos_b.ndim == 3
-            and pos_b.dtype == jnp.float32
-        )
+        from ..ops.gpu.pairwise import collision_forces_pairwise, sym_applicable
+
         xla = lambda p: jax.vmap(lambda q: _collision_forces_xla(q, cfg))(p)
-        if eligible and _PALLAS_MODE == "on":
-            # forced: interpret mode keeps the kernel testable off-TPU
-            out = _pallas_kernel_fn(cfg)(
-                pos_b, cfg, interpret=jax.default_backend() != "tpu"
+        ineligible = None
+        if pos_b.dtype != jnp.float32:
+            ineligible = f"the pair kernel takes float32 positions, not {pos_b.dtype}"
+        elif not sym_applicable(cfg):
+            ineligible = (
+                "the pair kernel needs one size and one mass with every "
+                "entity colliding and movable"
             )
-        elif eligible:
-            kern = _pallas_kernel_fn(cfg)
-            # auto: select by the platform the computation actually lowers
-            # for (not the process default backend — inputs committed to CPU
-            # on a TPU-default machine must take the XLA path)
-            out = jax.lax.platform_dependent(
-                pos_b,
-                tpu=lambda p: kern(p, cfg, interpret=False),
-                default=xla,
-            )
-        else:
-            out = xla(pos_b)
-        return out, in_batched[0]
+        kernel = lambda p, interpret=False: collision_forces_pairwise(
+            p, cfg, interpret=interpret
+        )
+        out = dispatch.choose(
+            kernel, xla, pos_b, entities=cfg.n_entities, ineligible=ineligible
+        )
+        return out, True
 
     _pallas_fns[key] = (cfg, fn)  # keep cfg alive: cache is keyed by id
     return fn
@@ -263,8 +164,8 @@ def collision_forces(pos: Array, cfg: WorldCfg) -> Array:
     """Pairwise soft-contact forces (see :func:`_collision_forces_xla`).
 
     The computation is statically restricted to the colliding-entity subset
-    (:func:`_collide_subset`); under ``vmap`` it dispatches to the fused
-    Pallas kernel for large entity counts on TPU."""
+    (:func:`_collide_subset`); under ``vmap`` it may dispatch to the GPU
+    pair kernel (:mod:`gym_formation_tpu.ops.dispatch`)."""
     sub = _collide_subset(cfg)
     if sub is None:
         return _collision_forces_dispatch(cfg)(pos)
@@ -294,11 +195,8 @@ def _collision_forces_xla(pos: Array, cfg: WorldCfg) -> Array:
     vectorizes without changing semantics.
     """
     eps = jnp.asarray(1e-12, pos.dtype) if cfg.nan_guard else jnp.asarray(0.0, pos.dtype)
-    large = cfg.n_entities >= 48
-    # Direct coordinate differences for the distances: exact (no gram-matrix
-    # cancellation) and, measured on v5e, faster than the gram variant — XLA
-    # fuses the [E,E,P] delta production into the following reductions, so it
-    # never hits HBM.
+    # Direct coordinate differences for the distances: exact, with no
+    # gram-matrix cancellation.
     delta = pos[:, None, :] - pos[None, :, :]  # [E,E,P]
     dist = jnp.sqrt(jnp.sum(delta * delta, axis=-1))  # [E,E]
     size = jnp.asarray(cfg.size, pos.dtype)
@@ -323,10 +221,10 @@ def _collision_forces_xla(pos: Array, cfg: WorldCfg) -> Array:
     # the raw force applies.
     ratio = jnp.where(movable[None, :], mass[None, :] / mass[:, None], 1.0)
     w = jnp.where(pair_ok & movable[:, None], coef * ratio, 0.0)  # [E,E]
-    if large:
-        # Σ_j w_ij (p_i - p_j) = rowsum(w)·p_i - W @ P: the reduction runs as
-        # two MXU ops instead of an [E,E,P] weighted sum.
-        return w.sum(axis=1, keepdims=True) * pos - w @ pos
+    # Σ_j w_ij (p_i - p_j) as a weighted sum, which XLA fuses with the pair
+    # terms above.  The rowsum(w)·p − W@P form is a difference of large
+    # terms, needs a full-f32 matrix product, and ran slower on an H100
+    # (PERF.md, kernel decisions).
     return jnp.einsum("ij,ijp->ip", w, delta)
 
 

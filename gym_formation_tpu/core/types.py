@@ -1,4 +1,4 @@
-"""Core state / configuration types for the TPU-native formation engine.
+"""Core state / configuration types for the formation engine.
 
 Design note
 -----------
@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from . import struct
 
 Array = jnp.ndarray
 

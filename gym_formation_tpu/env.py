@@ -1,7 +1,7 @@
 """Functional multi-agent environment API.
 
-TPU-native replacement for the reference ``MultiAgentEnv``
-(``/root/reference/formation_gym/environment.py:11-236``).  Instead of a
+A functional replacement for the reference ``MultiAgentEnv``
+(``formation_gym/environment.py:11-236``).  Instead of a
 stateful object mutated per step, :class:`FormationEnv` exposes pure
 ``reset(key) -> (state, obs)`` and ``step(state, actions) -> (state,
 StepOut)`` over one environment; :class:`VecFormationEnv` jits + vmaps them
@@ -238,10 +238,10 @@ class FormationEnv:
 class VecFormationEnv:
     """A batch of identical envs stepping in lockstep under one jit.
 
-    The TPU-native replacement for ``SubprocVecEnv``/``DummyVecEnv``
+    The single-program replacement for ``SubprocVecEnv``/``DummyVecEnv``
     (``train/maddpg-v2/utils/env_wrappers.py:9-129``): the batch is a leading
     axis of the state pytree, optionally sharded over a mesh axis so the
-    fleet spans chips/hosts with zero host involvement.
+    fleet spans devices and hosts with zero host involvement.
     """
 
     def __init__(self, env: FormationEnv, num_envs: int, sharding=None):
@@ -359,7 +359,7 @@ def rollout_statepolicy(
     :func:`~gym_formation_tpu.models.bfs.bfs_actions_from_state` closures.
 
     No observation tensor is ever materialized: the [N, 6N] obs is O(N²)
-    per agent and dominates HBM traffic at large N, while scripted and
+    per agent and dominates memory traffic at large N, while scripted and
     hierarchical controllers only need O(N) state quantities.  Actions (and
     hence trajectories/rewards) are identical to driving :func:`rollout`
     with the equivalent obs-consuming policy.  Returns the final state and
@@ -387,7 +387,7 @@ def rollout_statepolicy_rewardsum(
     scan carry instead of stacking per-step rewards.  The stacked [T, N]
     output is a scan output XLA must materialize — at the large-batch bench
     configs it dominates memory (N=243, B=8192, T=256: an 8.2 GB reward
-    tensor, which OOMs the 16 GB chip).  Returns (state, scalar reward sum).
+    tensor).  Returns (state, scalar reward sum).
     """
 
     def body(carry, _):
@@ -401,488 +401,6 @@ def rollout_statepolicy_rewardsum(
         body, (state, key, jnp.zeros((), state.pos.dtype)), None, length=length
     )
     return state, rsum
-
-
-def rollout_statepolicy_fused(
-    env: FormationEnv,
-    state_policy_fn,
-    state: EnvState,
-    keys: Array,
-    length: int,
-    stats: str = "pre",
-    tile: int = 16,
-    interpret: bool = False,
-    policy: str = "external",
-    layout: str = "auto",
-):
-    """Batched rollout driving the fused physics+reward step kernel
-    (:func:`~gym_formation_tpu.ops.pallas.fused_step.fused_hd_step`) — the
-    N=243 BASELINE fast path.
-
-    Unlike the per-env rollouts above this one is batch-level (the kernel
-    wants the whole env batch): ``state`` is a batched ``EnvState`` and
-    ``keys`` one PRNG key per env.  Semantics match
-    ``vmap(rollout_statepolicy)`` step for step — physics + hd reward +
-    shared-reward broadcast + time-limit auto-reset (``environment.py:
-    113-178``) — within the fused kernel's f32 tolerance
-    (tests/test_fused_rollout_hd.py).
-
-    ``stats="pre"`` runs the off-by-one plane-sharing variant: step t's
-    kernel emits the reward statistics of its *input* positions, which are
-    step t-1's post-physics positions, so reward t-1 is finalized during
-    step t.  On steps where any env auto-reset in between, the statistics
-    are recomputed from the carried pre-reset positions (one extra reward
-    kernel call under a scalar ``lax.cond`` — with lockstep episodes that is
-    1/episode_length of steps).  ``stats="post"`` computes the statistics on
-    the integrated positions inside the same kernel call (no restructuring,
-    ~one extra triangle sweep per step).
-
-    ``policy="bfs_ez"`` runs the arity-3 BFS + ezpolicy expansion INSIDE the
-    fused kernel (models/bfs_planes.py) — ``state_policy_fn`` is then unused
-    (the PRNG chain still advances identically, so trajectories stay
-    comparable with the step path).  The standard expansion's [B, G, n, 2]
-    tensors waste 126/128 lanes per op; in-kernel the whole 5-level
-    expansion stays VMEM-resident.
-
-    Returns ``(state, rewards [T, B])`` where ``rewards[t, b]`` is the sum
-    over agents of env b's step-t reward vector (the shared-reward broadcast
-    included, matching ``StepOut.reward.sum()``).
-    """
-    from .core import physics as _physics
-    from .ops.pallas.fused_step import fused_hd_step
-    from .ops.pallas.reward_sym import hd_reward_stats_sym
-
-    scen, cfg = env.scenario, env.cfg
-    n = cfg.n_agents
-    if layout == "auto":
-        layout = "planes" if (policy == "bfs_ez" and stats == "pre") else "arrays"
-    assert layout in ("planes", "arrays"), layout
-    if layout == "planes":
-        assert policy == "bfs_ez" and stats == "pre", (
-            "planes layout implemented for the bfs_ez + pre configuration"
-        )
-        return _rollout_fused_planes(
-            env, state, keys, length, tile=tile, interpret=interpret
-        )
-    sub = _physics._collide_subset(cfg)
-    if sub is None:
-        lo, hi, sub_cfg = 0, cfg.n_entities, cfg
-    else:
-        lo, hi, idx, sub_cfg = sub
-        assert idx is None and (lo, hi) == (0, n), "fused rollout wants the agent-prefix subset"
-    thresh = float(2.0 * cfg.size[0] * scen.collision_factor)
-    assert env.shared_reward and env.auto_reset and scen.scripted_mask is None
-    assert not cfg.has_noise() and bool(np.all(cfg.silent))
-    sens = jnp.asarray(env._sensitivity, jnp.float32)[None, :, None]
-    coef = jnp.asarray(cfg.act_coef, jnp.float32)[None, :, None]
-    interp = interpret or jax.default_backend() != "tpu"
-    assert policy in ("external", "bfs_ez"), policy
-    if policy == "bfs_ez":
-        import math as _math
-
-        bfs_L = round(_math.log(n, 3))
-        assert 3**bfs_L == n, (
-            f"policy='bfs_ez' runs the ARITY-3 in-kernel BFS expansion "
-            f"(models/bfs_planes.py); N={n} is not a power of 3 — use "
-            f"policy='external' with models/bfs.py (any arity, parity-tested)"
-        )
-        su = np.unique(env._sensitivity), np.unique(cfg.act_coef[:n])
-        assert len(su[0]) == 1 and len(su[1]) == 1, "bfs_ez wants uniform scaling"
-        act_scale = float(su[0][0] * su[1][0])
-    else:
-        bfs_L, act_scale = None, None
-
-    def phys_reward(st, actions):
-        """Shared step front half: decode, fused kernel, state update."""
-        keys3 = jax.vmap(lambda k: jax.random.split(k, 3))(st.key)
-        if policy == "bfs_ez":
-            aforce = None
-            kw = dict(bfs_L=bfs_L, ideal_vel=st.ideal_vel, act_scale=act_scale)
-        else:
-            aforce = actions.astype(jnp.float32) * sens * coef
-            kw = {}
-        npos_a, nvel_a, haus, ncoll = fused_hd_step(
-            st.pos[:, :n], st.vel[:, :n], aforce, st.ideal_shape, sub_cfg,
-            thresh=thresh, stats=stats, tile=tile, interpret=interp, **kw,
-        )
-        st = st.replace(
-            pos=jnp.concatenate([npos_a, st.pos[:, n:]], axis=1),
-            vel=jnp.concatenate([nvel_a, st.vel[:, n:]], axis=1),
-            c=jnp.zeros_like(st.c),
-            t=st.t + 1,
-            key=keys3[:, 0],
-        )
-        st = jax.vmap(scen.pre_obs)(st)
-        velterm = -jnp.linalg.norm(
-            st.ideal_vel - nvel_a.mean(axis=1), axis=-1
-        )  # [B]
-        return st, keys3[:, 2], haus, ncoll, velterm
-
-    def finalize(haus, ncoll, velterm):
-        """Per-env sum of the step's reward vector, shared-broadcast included
-        (``environment.py:135-138``): sum_i broadcast(sum_j indiv_j) ==
-        n * (n*(-haus+velterm) - sum ncoll)."""
-        return n * (n * (velterm - haus) - ncoll.sum(axis=-1))
-
-    def auto_reset(st, k_reset):
-        done = st.t >= env.world_length  # [B]
-
-        def do_reset(st):
-            fresh = jax.vmap(lambda k: scen.pre_obs(scen.reset(k)))(k_reset)
-            sel = lambda a, b: jnp.where(
-                jnp.reshape(done, done.shape + (1,) * (a.ndim - 1)), a, b
-            )
-            return jax.tree.map(sel, fresh, st)
-
-        # scalar cond: generating a complete fresh episode (uniform draws,
-        # landmark recentring, a tree-wide select over ~80 MB of state at
-        # N=243 B=2048) every step cost ~0.2 ms/step; with lockstep episodes
-        # it is needed on 1/episode_length of steps.  The PRNG chain is
-        # untouched (k_reset was split either way), so trajectories are
-        # identical to the unconditional select.
-        return jax.lax.cond(jnp.any(done), do_reset, lambda s: s, st), done
-
-    if stats == "post":
-
-        def body(carry, _):
-            st, k = carry
-            ks = jax.vmap(lambda kk: jax.random.split(kk))(k)
-            actions = None if policy == "bfs_ez" else jax.vmap(
-                state_policy_fn
-            )(jax.vmap(scen.pre_obs)(st), ks[:, 1])
-            st, k_reset, haus, ncoll, velterm = phys_reward(st, actions)
-            r = finalize(haus, ncoll, velterm)
-            st, _ = auto_reset(st, k_reset)
-            return (st, ks[:, 0]), r
-
-        (state, _), rewards = jax.lax.scan(
-            body, (state, keys), None, length=length
-        )
-        return state, rewards
-
-    # stats == "pre": off-by-one finalization with reset-boundary correction
-    B = keys.shape[0]
-
-    def stats_plain(pos_a, ishape):
-        return hd_reward_stats_sym(
-            pos_a, ishape, thresh=thresh, interpret=interp
-        )
-
-    def body(carry, _):
-        st, k, prev = carry
-        ks = jax.vmap(lambda kk: jax.random.split(kk))(k)
-        actions = None if policy == "bfs_ez" else jax.vmap(
-            state_policy_fn
-        )(jax.vmap(scen.pre_obs)(st), ks[:, 1])
-        ishape_t = st.ideal_shape
-        st, k_reset, haus_in, ncoll_in, velterm = phys_reward(st, actions)
-        post_pos = st.pos[:, :n]  # pre-reset post-physics positions
-
-        # finalize reward t-1: the kernel's input-state statistics are valid
-        # for envs that did NOT reset between t-1 and t; the rest recompute
-        # from the carried pre-reset positions (scalar cond: skipped
-        # entirely on reset-free steps — all but 1/episode_length of steps
-        # under lockstep episodes)
-        def corrected(_):
-            h2, nc2 = stats_plain(prev["pos"], prev["ishape"])
-            return (
-                jnp.where(prev["done"], h2, haus_in),
-                jnp.where(prev["done"][:, None], nc2, ncoll_in),
-            )
-
-        haus_prev, ncoll_prev = jax.lax.cond(
-            jnp.any(prev["done"]),
-            corrected,
-            lambda _: (haus_in, ncoll_in),
-            None,
-        )
-        r_prev = finalize(haus_prev, ncoll_prev, prev["velterm"])
-
-        st, done = auto_reset(st, k_reset)
-        prev = {
-            "pos": post_pos,
-            "ishape": ishape_t,
-            "velterm": velterm,
-            "done": done,
-        }
-        return (st, ks[:, 0], prev), r_prev
-
-    prev0 = {
-        "pos": state.pos[:, :n],
-        "ishape": state.ideal_shape,
-        "velterm": jnp.zeros((B,), jnp.float32),
-        "done": jnp.zeros((B,), bool),
-    }
-    (state, _, prev), ys = jax.lax.scan(
-        body, (state, keys, prev0), None, length=length
-    )
-    # ys[0] finalized the bogus step -1; the last step finalizes here
-    h_last, nc_last = stats_plain(prev["pos"], prev["ishape"])
-    r_last = finalize(h_last, nc_last, prev["velterm"])
-    rewards = jnp.concatenate([ys[1:], r_last[None]], axis=0)
-    return state, rewards
-
-
-def _rollout_fused_planes(
-    env: FormationEnv,
-    state: EnvState,
-    keys: Array,
-    length: int,
-    tile: int = 16,
-    interpret: bool = False,
-):
-    """SoA-planes body of :func:`rollout_statepolicy_fused` (bfs_ez + pre).
-
-    The arrays-layout body converts ``[B, N, 2]`` state to transposed
-    ``[E, B]`` planes inside every kernel call and back out — and every XLA
-    op between calls (concats, selects, recentring) runs on tensors whose
-    minor dimension is the 2-wide coordinate axis, i.e. at 2/128 lane
-    utilization.  Here the scan carry IS the plane set: positions,
-    velocities, ideal shape, landmarks and the root-velocity rows stay in
-    the transposed layout for the whole chunk; `[B, N, 2]` exists only at
-    chunk boundaries and inside the rare reset/correction conds.  Step
-    semantics and the PRNG chain are identical to the arrays body
-    (parity: tests/test_fused_rollout_hd.py)."""
-    import math as _math
-
-    from .core import physics as _physics
-    from .ops.pallas.fused_step import fused_hd_step_planes
-    from .ops.pallas.reward_sym import hd_reward_stats_sym
-
-    scen, cfg = env.scenario, env.cfg
-    n = cfg.n_agents
-    nl = cfg.n_landmarks
-    sub = _physics._collide_subset(cfg)
-    sub_cfg = cfg if sub is None else sub[3]
-    thresh = float(2.0 * cfg.size[0] * scen.collision_factor)
-    bfs_L = round(_math.log(n, 3))
-    assert 3**bfs_L == n, f"bfs_ez needs an arity-3 agent count, got {n}"
-    assert env.shared_reward and env.auto_reset and scen.scripted_mask is None
-    assert not cfg.has_noise() and bool(np.all(cfg.silent))
-    su = np.unique(env._sensitivity), np.unique(cfg.act_coef[:n])
-    assert len(su[0]) == 1 and len(su[1]) == 1
-    act_scale = float(su[0][0] * su[1][0])
-    interp = interpret or jax.default_backend() != "tpu"
-    wl = env.world_length
-
-    B = keys.shape[0]
-    LANE = 128
-    up = lambda v, m: ((v + m - 1) // m) * m
-    Ep = up(n, tile)
-    Lp = up(max(nl, 8), 8)
-    Bp = up(B, LANE)
-    sent = (jnp.arange(Ep, dtype=jnp.float32) >= n) * (
-        1e4 * (1.0 + jnp.arange(Ep, dtype=jnp.float32))
-    )
-    zero = jnp.zeros_like(sent)
-
-    def pad_t(a, s, rows):  # [B, rows_real] -> [rows, Bp] with row offsets s
-        return (
-            jnp.zeros((Bp, rows), jnp.float32).at[:B, : a.shape[1]].set(a)
-            + s[None, :rows]
-        ).T
-
-    rmask = (jnp.arange(Ep) < n)[:, None]  # [Ep, 1]
-    lmask = (jnp.arange(Lp) < nl)[:, None]
-
-    def to_planes(st):
-        x = pad_t(st.pos[:, :n, 0], sent, Ep)
-        y = pad_t(st.pos[:, :n, 1], sent, Ep)
-        vx = pad_t(st.vel[:, :n, 0], zero, Ep)
-        vy = pad_t(st.vel[:, :n, 1], zero, Ep)
-        sx = pad_t(st.ideal_shape[..., 0], -sent, Ep)
-        sy = pad_t(st.ideal_shape[..., 1], -sent, Ep)
-        lz = jnp.zeros(Lp, jnp.float32)
-        lx = pad_t(st.pos[:, n:, 0], lz, Lp)
-        ly = pad_t(st.pos[:, n:, 1], lz, Lp)
-        rvx = jnp.zeros((Ep, Bp), jnp.float32).at[0, :B].set(st.ideal_vel[:, 0])
-        rvy = jnp.zeros((Ep, Bp), jnp.float32).at[0, :B].set(st.ideal_vel[:, 1])
-        return dict(
-            x=x, y=y, vx=vx, vy=vy, sx=sx, sy=sy, lx=lx, ly=ly,
-            rvx=rvx, rvy=rvy, t=st.t, key=st.key,
-        )
-
-    P0 = to_planes(state)
-    prev0 = dict(
-        px=P0["x"], py=P0["y"], psx=P0["sx"], psy=P0["sy"],
-        vt=jnp.zeros((B,), jnp.float32), done=jnp.zeros((B,), bool),
-    )
-
-    def stats_prev(prev):
-        ppos = jnp.stack(
-            [prev["px"][:n, :B].T, prev["py"][:n, :B].T], axis=-1
-        )
-        pish = jnp.stack(
-            [prev["psx"][:n, :B].T, prev["psy"][:n, :B].T], axis=-1
-        )
-        return hd_reward_stats_sym(ppos, pish, thresh=thresh, interpret=interp)
-
-    def finalize(haus, ncsum, velterm):
-        return n * (n * (velterm - haus) - ncsum)
-
-    def body(carry, _):
-        P, k, prev = carry
-        ks = jax.vmap(lambda kk: jax.random.split(kk))(k)
-        keys3 = jax.vmap(lambda kk: jax.random.split(kk, 3))(P["key"])
-        nx, ny, nvx, nvy, rowmin, colmin, cnt = fused_hd_step_planes(
-            P["x"], P["y"], P["vx"], P["vy"], P["rvx"], P["rvy"],
-            P["sx"], P["sy"], sub_cfg,
-            n=n, thresh=thresh, stats="pre", tile=tile, interpret=interp,
-            bfs_L=bfs_L, act_scale=act_scale,
-        )
-        # reward t-1: stats of this call's INPUT state (valid unless reset)
-        big = jnp.float32(3.4e38)
-        rm = jnp.where(rmask, rowmin, -big).max(axis=0)
-        cm = jnp.where(rmask, colmin, -big).max(axis=0)
-        haus_in = jnp.sqrt(jnp.maximum(rm, cm))[:B]
-        ncs_in = cnt.sum(axis=0)[:B]
-
-        def corrected(_):
-            h2, nc2 = stats_prev(prev)
-            return (
-                jnp.where(prev["done"], h2, haus_in),
-                jnp.where(prev["done"], nc2.sum(axis=-1), ncs_in),
-            )
-
-        h_prev, ncs_prev = jax.lax.cond(
-            jnp.any(prev["done"]), corrected,
-            lambda _: (haus_in, ncs_in), None,
-        )
-        r_prev = finalize(h_prev, ncs_prev, prev["vt"])
-
-        # this step's velocity term (post-physics, pre-reset)
-        mvx = nvx.sum(axis=0)[:B] / n  # pad rows are exactly 0
-        mvy = nvy.sum(axis=0)[:B] / n
-        ivx = P["rvx"][0, :B]
-        ivy = P["rvy"][0, :B]
-        velterm = -jnp.sqrt((ivx - mvx) ** 2 + (ivy - mvy) ** 2)
-
-        # landmark recentring onto the agent centroid (pre_obs,
-        # formation_hd_env.py:40-44) — plane ops, lane-parallel
-        amx = jnp.where(rmask, nx, 0.0).sum(axis=0) / n  # [Bp]
-        amy = jnp.where(rmask, ny, 0.0).sum(axis=0) / n
-        lmx = jnp.where(lmask, P["lx"], 0.0).sum(axis=0) / nl
-        lmy = jnp.where(lmask, P["ly"], 0.0).sum(axis=0) / nl
-        lx = jnp.where(lmask, P["lx"] + (amx - lmx)[None, :], P["lx"])
-        ly = jnp.where(lmask, P["ly"] + (amy - lmy)[None, :], P["ly"])
-
-        t = P["t"] + 1
-        done = t >= wl  # [B]
-        newP = dict(
-            x=nx, y=ny, vx=nvx, vy=nvy, sx=P["sx"], sy=P["sy"],
-            lx=lx, ly=ly, rvx=P["rvx"], rvy=P["rvy"], t=t,
-            key=keys3[:, 0],
-        )
-
-        def do_reset(newP):
-            fresh = jax.vmap(lambda kk: scen.pre_obs(scen.reset(kk)))(
-                keys3[:, 2]
-            )
-            F = to_planes(fresh)
-            dl = jnp.zeros((Bp,), bool).at[:B].set(done)[None, :]
-            out = {}
-            for kname, v in newP.items():
-                if kname in ("t", "key"):
-                    f = F[kname]
-                    sel = jnp.reshape(done, done.shape + (1,) * (v.ndim - 1))
-                    out[kname] = jnp.where(sel, f, v)
-                else:
-                    out[kname] = jnp.where(dl, F[kname], v)
-            return out
-
-        newP = jax.lax.cond(jnp.any(done), do_reset, lambda p: p, newP)
-        prev = dict(
-            px=nx, py=ny, psx=P["sx"], psy=P["sy"], vt=velterm, done=done
-        )
-        return (newP, ks[:, 0], prev), r_prev
-
-    (P, _, prev), ys = jax.lax.scan(
-        body, (P0, keys, prev0), None, length=length
-    )
-    h_last, nc_last = stats_prev(prev)
-    r_last = finalize(h_last, nc_last.sum(axis=-1), prev["vt"])
-    rewards = jnp.concatenate([ys[1:], r_last[None]], axis=0)
-
-    pos = jnp.concatenate(
-        [
-            jnp.stack([P["x"][:n, :B].T, P["y"][:n, :B].T], axis=-1),
-            jnp.stack([P["lx"][:nl, :B].T, P["ly"][:nl, :B].T], axis=-1),
-        ],
-        axis=1,
-    ).astype(state.pos.dtype)
-    vel = jnp.concatenate(
-        [
-            jnp.stack([P["vx"][:n, :B].T, P["vy"][:n, :B].T], axis=-1),
-            jnp.zeros((B, nl, 2), state.vel.dtype),
-        ],
-        axis=1,
-    ).astype(state.vel.dtype)
-    out_state = state.replace(
-        pos=pos,
-        vel=vel,
-        c=jnp.zeros_like(state.c),
-        ideal_shape=jnp.stack(
-            [P["sx"][:n, :B].T, P["sy"][:n, :B].T], axis=-1
-        ).astype(state.ideal_shape.dtype),
-        ideal_vel=jnp.stack([P["rvx"][0, :B], P["rvy"][0, :B]], axis=-1).astype(
-            state.ideal_vel.dtype
-        ),
-        t=P["t"],
-        key=P["key"],
-    )
-    return out_state, rewards
-
-
-_fused_sharded_cache: dict = {}
-
-
-def rollout_statepolicy_fused_sharded(
-    env: FormationEnv,
-    state_policy_fn,
-    state: EnvState,
-    keys: Array,
-    length: int,
-    mesh,
-    axis: str = "data",
-    **kw,
-):
-    """:func:`rollout_statepolicy_fused` composed with a data mesh via
-    ``shard_map``: each shard runs the fused kernel on its B/D slice of the
-    env batch.  Envs have no cross-shard coupling, so the mapping is exact;
-    the off-by-one reset-correction ``lax.cond`` becomes per-shard (still
-    correct — it only gates a recompute).  Returns ``(state, rewards)`` like
-    the unsharded call."""
-    from jax.sharding import PartitionSpec as P
-
-    # Cache the jitted shard_map closure: jit keys on the callable object, so
-    # rebuilding it per invocation re-traces the whole T-step rollout every
-    # call (ADVICE r4 — bench.py's mesh branch was paying trace+lower inside
-    # every timed window).
-    ck = (id(env), state_policy_fn, length, mesh, axis,
-          tuple(sorted(kw.items())))
-    hit = _fused_sharded_cache.get(ck)
-    if hit is None:
-        spec = jax.tree.map(lambda _: P(axis), state)
-
-        def fn(st, ks):
-            return rollout_statepolicy_fused(
-                env, state_policy_fn, st, ks, length, **kw
-            )
-
-        hit = jax.jit(
-            jax.shard_map(
-                fn,
-                mesh=mesh,
-                in_specs=(spec, P(axis)),
-                out_specs=(spec, P(None, axis)),
-                # pallas_call outputs carry no vma annotation; per-shard pure
-                check_vma=False,
-            )
-        )
-        _fused_sharded_cache[ck] = (env, hit)  # keep env alive (id-keyed)
-    else:
-        hit = hit[1]
-    return hit(state, keys)
 
 
 def make_receptor_locations(receptor_type: str = "polar") -> np.ndarray:

@@ -1,6 +1,6 @@
 """`formation_hd_env`: Hausdorff-distance formation control (primary workload).
 
-TPU-native rebuild of ``/root/reference/formation_gym/envs/formation_hd_env.py``:
+A rebuild of the reference's ``formation_gym/envs/formation_hd_env.py``:
 agents must mimic the *shape* (translation-invariant topology) of a landmark
 constellation while tracking a shared target velocity and avoiding collisions.
 """
@@ -139,14 +139,14 @@ class FormationHDScenario(Scenario):
 
     def _hd_stats(self):
         """Per-env (hausdorff, collision-count) fn; under ``vmap`` over the
-        env batch it dispatches to the fused Pallas reduction kernel
-        (ops/pallas/reward.py) for large N on TPU, so the two [B, N, N]
-        distance matrices never touch HBM.  Mirrors the pair-force dispatch
-        (core/physics.py)."""
+        env batch it goes through :func:`ops.dispatch.choose`, which may pick
+        the GPU reduction kernel (ops/gpu/pairwise.py), so the two
+        [B, N, N] distance planes never reach device memory.  Mirrors the
+        pair-force dispatch (core/physics.py)."""
         from ..core import physics as _physics
+        from ..ops import dispatch
 
-        # cached in the physics dispatch registry so set_pallas_mode()
-        # invalidates it alongside the pair-force wrappers
+        # cached beside the pair-force wrappers, in the same bounded registry
         cache_key = ("hd_stats", id(self))
         hit = _physics._pallas_fns.get(cache_key)
         if hit is not None and hit[0] is self:
@@ -163,47 +163,22 @@ class FormationHDScenario(Scenario):
 
         @fn.def_vmap
         def _rule(axis_size, in_batched, apos_b, ishape_b):
-            del axis_size
-            eligible = (
-                uniform
-                and apos_b.ndim == 3
-                and apos_b.dtype == jnp.float32
-                and _physics._PALLAS_MODE != "off"
-                and (
-                    _physics._PALLAS_MODE == "on"
-                    or n >= _physics._PALLAS_MIN_ENTITIES
-                )
-            )
+            del axis_size, in_batched  # both come from the batched state
+            from ..ops.gpu.pairwise import hd_stats_pairwise
+
             xla = lambda a, s: jax.vmap(self._hd_stats_xla)(a, s)
-            if _physics._REWARD_IMPL == "sym" and not eligible:
-                # forced: a silent XLA fallback would let a forced-sym
-                # benchmark time the fallback while labeled sym — mirror the
-                # pair-force forced-dispatch assert (ADVICE r4)
-                raise AssertionError(
-                    "set_reward_impl('sym') forced but the reward kernel is "
-                    "not eligible here (needs uniform sizes, f32 batch, "
-                    "pallas mode on/auto with N >= threshold)"
-                )
-            if _physics._REWARD_IMPL == "rowmajor":
-                from ..ops.pallas.reward import hd_reward_stats_batched as kern
-            else:
-                # 'auto'/'sym': transposed-lane triangle kernel — measured
-                # faster on v5e at the BASELINE shape (RESULTS.md r4 A/B)
-                from ..ops.pallas.reward_sym import hd_reward_stats_sym as kern
-            if eligible and _physics._PALLAS_MODE == "on":
-                out = kern(
-                    apos_b, ishape_b, thresh=thresh,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            elif eligible:
-                out = jax.lax.platform_dependent(
-                    apos_b, ishape_b,
-                    tpu=lambda a, s: kern(a, s, thresh=thresh),
-                    default=xla,
-                )
-            else:
-                out = xla(apos_b, ishape_b)
-            return out, (in_batched[0], in_batched[0])
+            ineligible = None
+            if apos_b.dtype != jnp.float32:
+                ineligible = f"the reward kernel takes float32 positions, not {apos_b.dtype}"
+            elif not uniform:
+                ineligible = "the reward kernel needs one agent size"
+            kernel = lambda a, s, interpret=False: hd_stats_pairwise(
+                a, s, thresh=thresh, interpret=interpret
+            )
+            out = dispatch.choose(
+                kernel, xla, apos_b, ishape_b, entities=n, ineligible=ineligible
+            )
+            return out, (True, True)
 
         _physics._pallas_fns[cache_key] = (self, fn)  # keep self alive
         return fn

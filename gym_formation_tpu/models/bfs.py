@@ -5,10 +5,10 @@ runs one n-agent policy recursively over n^L agents by treating group
 centroids as meta-agents: a Python BFS queue issuing ``(n^L − 1)/(n − 1)``
 sequential single-obs policy calls (121 for n=3, L=5 — README.md:31-51).
 
-TPU-native formulation: all groups of one level are coarsened at once with a
+Formulation: all groups of one level are coarsened at once with a
 segment-mean (``block_means``) and evaluated in ONE batched policy apply, so
 the depth-L expansion costs L sequential applies total, each a large batch
-that feeds the MXU.  Everything is static-shaped; the whole expansion jits
+that keeps the device busy.  Everything is static-shaped; the whole expansion jits
 and vmaps over the env batch.
 """
 
@@ -78,7 +78,7 @@ def bfs_actions_from_state(
     positions in any common frame, agent velocities, the ideal shape, the
     commanded root velocity); the full observation's O(N²) ``others_rel``
     replication is interface overhead for it.  At N=243 the obs tensor
-    (354k floats/env/step) dominates HBM traffic — this path removes it
+    (354k floats/env/step) dominates memory traffic — this path removes it
     from scripted/hierarchical rollouts (`hd` scenario family: obs layout
     ``formation_hd_env.py:38-59``).
     """
@@ -119,8 +119,8 @@ def _expand(
         leaders = V.reshape(G, n, m, 2)[:, :, 0]  # [G, n, 2] leader velocities
         rel = C[:, None, :, :] - C[:, :, None, :]  # [G, i, k, 2] = C_k − C_i
         # drop block i from its own centroid list via static slices (a
-        # take_along_axis here lowers to a TPU dynamic-gather — slow and
-        # unnecessary for a compile-time-constant index pattern)
+        # take_along_axis here would lower to a dynamic gather, which a
+        # compile-time-constant index pattern does not need)
         cur_shape = jnp.stack(
             [
                 jnp.concatenate([rel[:, i, :i], rel[:, i, i + 1 :]], axis=1)

@@ -1,11 +1,16 @@
-"""Neural networks for the trainer zoo (flax.linen).
+"""Networks for the MAPPO learners, in plain JAX.
 
-Scale mirrors the reference baselines: 64-hidden MLPs with orthogonal init
-(``/root/reference/train/maddpg-v1/maddpg/actor_critic.py:7-43`` — 3×64 ReLU
-actor/critic; ``train/maddpg-v2/utils/networks.py:4-46`` — 2-hidden MLP with
-tanh-constrained output; mappo's shared 64-hidden nets per
-``train/mappo/train_formation.sh:13`` defaults).  Everything is batch-first
-and jit/vmap/pjit friendly.
+Scale mirrors the reference baselines: 64-hidden ReLU MLPs with orthogonal
+init (``train/maddpg-v1/maddpg/actor_critic.py:7-43``;
+``train/maddpg-v2/utils/networks.py:4-46``; mappo's shared 64-hidden nets per
+``train/mappo/train_formation.sh:13`` defaults).  Each network has the
+``init(key, x) -> params`` / ``apply(params, x)`` surface, and its parameter
+tree is laid out as a ``flax.linen`` module of the same structure would lay
+it out (``{"params": {"MLP_0": {"Dense_0": {"kernel", "bias"}, ...},
+"Dense_0": ..., "log_std"}}``), so checkpoints and the factorized layers of
+:mod:`.structured_obs` read it by name.  Everything is batch-first and
+jit/vmap friendly.  The off-policy and recurrent learners' networks are
+``flax.linen`` modules in :mod:`.flax_networks`.
 """
 
 from __future__ import annotations
@@ -14,116 +19,130 @@ from typing import Callable, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
 Array = jnp.ndarray
 
 
-def orthogonal_init(scale: float = jnp.sqrt(2)):
-    return nn.initializers.orthogonal(scale)
+def orthogonal_init(scale: float = 2.0 ** 0.5):
+    return jax.nn.initializers.orthogonal(scale)
 
 
 def soft_bound(x: Array, lo: float, hi: float) -> Array:
     """Smoothly bound ``x`` to (lo, hi) with nonzero gradient everywhere
     (a hard clip freezes the parameter permanently once it crosses a bound:
     the clipped branch has zero gradient).  Identity-like near 0."""
-    return hi - nn.softplus(hi - (lo + nn.softplus(x - lo)))
+    return hi - jax.nn.softplus(hi - (lo + jax.nn.softplus(x - lo)))
 
 
-class MLP(nn.Module):
-    """ReLU MLP trunk with orthogonal init (reference mappo/maddpg-v4 style:
-    orthogonal + optional layer norm, ``maddpg-v4/parameters.yaml``)."""
+def _dense_init(key, fan_in: int, fan_out: int, scale: float) -> dict:
+    return {
+        "kernel": orthogonal_init(scale)(key, (fan_in, fan_out), jnp.float32),
+        "bias": jnp.zeros((fan_out,), jnp.float32),
+    }
 
-    features: Sequence[int]
-    activation: Callable = nn.relu
-    use_layer_norm: bool = False
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        for f in self.features:
-            x = nn.Dense(f, kernel_init=orthogonal_init())(x)
-            x = self.activation(x)
-            if self.use_layer_norm:
-                x = nn.LayerNorm()(x)
+def _dense(p: dict, x: Array) -> Array:
+    return x @ p["kernel"] + p["bias"]
+
+
+class MLP:
+    """ReLU MLP trunk with orthogonal init (reference mappo/maddpg-v4 style,
+    ``maddpg-v4/parameters.yaml``).  Parameters ``{"Dense_i": ...}``."""
+
+    def __init__(self, features: Sequence[int], activation: Callable = jax.nn.relu):
+        self.features = tuple(features)
+        self.activation = activation
+
+    def init_params(self, key, fan_in: int) -> dict:
+        keys = jax.random.split(key, len(self.features))
+        params = {}
+        for i, (k, f) in enumerate(zip(keys, self.features)):
+            params[f"Dense_{i}"] = _dense_init(k, fan_in, f, 2.0 ** 0.5)
+            fan_in = f
+        return params
+
+    def __call__(self, params: dict, x: Array) -> Array:
+        for i in range(len(self.features)):
+            x = self.activation(_dense(params[f"Dense_{i}"], x))
         return x
 
 
-class GaussianActor(nn.Module):
+class _MLPHead:
+    """MLP trunk then one orthogonal-init dense head; the base of the three
+    networks below."""
+
+    head_scale = 1.0
+
+    def __init__(self, out_dim: int, hidden: Sequence[int]):
+        self.out_dim = out_dim
+        self.hidden = tuple(hidden)
+        self.trunk = MLP(self.hidden)
+
+    def _init(self, key, x: Array) -> dict:
+        k_trunk, k_head = jax.random.split(key)
+        fan_in = self.hidden[-1] if self.hidden else x.shape[-1]
+        return {
+            "MLP_0": self.trunk.init_params(k_trunk, x.shape[-1]),
+            "Dense_0": _dense_init(k_head, fan_in, self.out_dim, self.head_scale),
+        }
+
+    def init(self, key, x: Array) -> dict:
+        return {"params": self._init(key, x)}
+
+    def _head(self, params: dict, x: Array) -> Array:
+        p = params["params"]
+        return _dense(p["Dense_0"], self.trunk(p["MLP_0"], x))
+
+
+class GaussianActor(_MLPHead):
     """Continuous stochastic policy for PPO/MAPPO: diagonal Gaussian with a
     state-independent learned log-std."""
 
-    act_dim: int
-    hidden: Sequence[int] = (64, 64)
-    log_std_init: float = 0.0
+    head_scale = 0.01
 
-    @nn.compact
-    def __call__(self, obs: Array) -> Tuple[Array, Array]:
-        h = MLP(self.hidden)(obs)
-        mean = nn.Dense(self.act_dim, kernel_init=orthogonal_init(0.01))(h)
-        log_std = self.param(
-            "log_std", nn.initializers.constant(self.log_std_init), (self.act_dim,)
-        )
+    def __init__(self, act_dim: int, hidden: Sequence[int] = (64, 64),
+                 log_std_init: float = 0.0):
+        super().__init__(act_dim, hidden)
+        self.act_dim = act_dim
+        self.log_std_init = log_std_init
+
+    def init(self, key, obs: Array) -> dict:
+        params = self._init(key, obs)
+        params["log_std"] = jnp.full((self.act_dim,), self.log_std_init, jnp.float32)
+        return {"params": params}
+
+    def apply(self, params: dict, obs: Array) -> Tuple[Array, Array]:
+        mean = self._head(params, obs)
         # guard rail: unbounded log_std drift eventually NaNs the PPO ratio
-        log_std = soft_bound(log_std, -5.0, 2.0)
+        log_std = soft_bound(params["params"]["log_std"], -5.0, 2.0)
         return mean, jnp.broadcast_to(log_std, mean.shape)
 
 
-class ValueCritic(nn.Module):
+class ValueCritic(_MLPHead):
     """Centralized value head: share_obs (all agents' obs concatenated,
     ``environment.py:95-96``) → scalar value."""
 
-    hidden: Sequence[int] = (64, 64)
+    def __init__(self, hidden: Sequence[int] = (64, 64)):
+        super().__init__(1, hidden)
 
-    @nn.compact
-    def __call__(self, share_obs: Array) -> Array:
-        h = MLP(self.hidden)(share_obs)
-        return nn.Dense(1, kernel_init=orthogonal_init(1.0))(h).squeeze(-1)
-
-
-class DeterministicActor(nn.Module):
-    """DDPG/MADDPG actor: tanh-squashed deterministic policy ×max_action
-    (reference ``maddpg-v1/maddpg/actor_critic.py:7-24``)."""
-
-    act_dim: int
-    max_action: float = 1.0
-    hidden: Sequence[int] = (64, 64, 64)
-
-    @nn.compact
-    def __call__(self, obs: Array) -> Array:
-        h = MLP(self.hidden)(obs)
-        return self.max_action * jnp.tanh(
-            nn.Dense(self.act_dim, kernel_init=orthogonal_init(0.01))(h)
-        )
+    def apply(self, params: dict, share_obs: Array) -> Array:
+        return self._head(params, share_obs).squeeze(-1)
 
 
-class CentralizedQCritic(nn.Module):
-    """MADDPG centralized critic: Q(all obs, all actions) → scalar
-    (reference ``maddpg-v1/maddpg/actor_critic.py:26-43``; actions scaled by
-    max_action before concat, ``:37-39``)."""
-
-    max_action: float = 1.0
-    hidden: Sequence[int] = (64, 64, 64)
-
-    @nn.compact
-    def __call__(self, obs_all: Array, act_all: Array) -> Array:
-        x = jnp.concatenate([obs_all, act_all / self.max_action], axis=-1)
-        h = MLP(self.hidden)(x)
-        return nn.Dense(1, kernel_init=orthogonal_init(1.0))(h).squeeze(-1)
-
-
-class LogitsActor(nn.Module):
+class LogitsActor(_MLPHead):
     """Discrete-action actor: MLP → per-action logits (the reference v2
     discrete path, where the policy net's raw output feeds
     ``onehot_from_logits``/``gumbel_softmax`` —
     ``maddpg-v2/utils/agents.py:48-62``, ``utils/misc.py:49-80``)."""
 
-    n_actions: int
-    hidden: Sequence[int] = (64, 64, 64)
+    head_scale = 0.01
 
-    @nn.compact
-    def __call__(self, obs: Array) -> Array:
-        h = MLP(self.hidden)(obs)
-        return nn.Dense(self.n_actions, kernel_init=orthogonal_init(0.01))(h)
+    def __init__(self, n_actions: int, hidden: Sequence[int] = (64, 64, 64)):
+        super().__init__(n_actions, hidden)
+        self.n_actions = n_actions
+
+    def apply(self, params: dict, obs: Array) -> Array:
+        return self._head(params, obs)
 
 
 def onehot_from_logits(logits: Array) -> Array:
@@ -175,53 +194,3 @@ def gaussian_entropy(log_std: Array) -> Array:
 
 def gaussian_sample(key, mean: Array, log_std: Array) -> Array:
     return mean + jnp.exp(log_std) * jax.random.normal(key, mean.shape, mean.dtype)
-
-
-class GRUPolicy(nn.Module):
-    """Recurrent actor core: obs embed → GRU → Gaussian head.
-
-    The recurrent (`r*`) variants of the reference zoo — rmappo is the tuned
-    default (``train/mappo/train_formation.sh:13``), and the offpolicy side
-    exposes rmaddpg/rmatd3/rmasac with rnn chunking
-    (``train/maddpg-v5/config.py:89-90``)."""
-
-    act_dim: int
-    hidden: int = 64
-    discrete: bool = False  # logits head instead of the Gaussian head
-
-    @nn.compact
-    def __call__(self, carry: Array, obs: Array, reset: Array):
-        """One step: carry [., H], obs [., do], reset [.] bool (zeroes the
-        carry at episode starts).  Returns (new_carry, dist) where dist is
-        (mean, log_std) or, when ``discrete``, per-action logits."""
-        x = nn.relu(nn.Dense(self.hidden, kernel_init=orthogonal_init())(obs))
-        carry = jnp.where(reset[..., None], 0.0, carry)
-        carry, h = nn.GRUCell(self.hidden)(carry, x)
-        out = nn.Dense(self.act_dim, kernel_init=orthogonal_init(0.01))(h)
-        if self.discrete:
-            return carry, out
-        log_std = self.param(
-            "log_std", nn.initializers.constant(0.0), (self.act_dim,)
-        )
-        log_std = soft_bound(log_std, -5.0, 2.0)
-        return carry, (out, jnp.broadcast_to(log_std, out.shape))
-
-    def initial_carry(self, batch_shape) -> Array:
-        return jnp.zeros(tuple(batch_shape) + (self.hidden,))
-
-
-class GRUCritic(nn.Module):
-    """Recurrent centralized value core: share_obs → GRU → V."""
-
-    hidden: int = 64
-
-    @nn.compact
-    def __call__(self, carry: Array, share_obs: Array, reset: Array):
-        x = nn.relu(nn.Dense(self.hidden, kernel_init=orthogonal_init())(share_obs))
-        carry = jnp.where(reset[..., None], 0.0, carry)
-        carry, h = nn.GRUCell(self.hidden)(carry, x)
-        v = nn.Dense(1, kernel_init=orthogonal_init(1.0))(h).squeeze(-1)
-        return carry, v
-
-    def initial_carry(self, batch_shape) -> Array:
-        return jnp.zeros(tuple(batch_shape) + (self.hidden,))

@@ -54,8 +54,7 @@ def ezpolicy(obs: Array, num_agents: int = None) -> Array:
     # the first whose closest agent is self, falling back to the last-ranked
     # (farthest) vertex.  "First ranked with ok" ≡ "argmin of d_self over ok
     # vertices" (argsort and argmin break ties identically: lowest index), so
-    # the rank walk is a masked argmin — no sort/scatter/dynamic-gather,
-    # which TPUs execute as slow bitonic/serial ops.
+    # the rank walk is a masked argmin — no sort/scatter/dynamic-gather.
     d_self = jnp.linalg.norm(me[None, :] - ideal_shape, axis=-1)  # [vertex]
     d_agent_vertex = jnp.linalg.norm(
         cur[:, None, :] - ideal_shape[None, :, :], axis=-1

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
 from .networks import soft_bound
 
@@ -61,9 +60,9 @@ def hd_actor_h1(W: Array, b: Array, apos, avel, ishape, ivel, dtype=None) -> Arr
     apos/avel/ishape: [..., N, 2]; ivel: [..., 2].  Returns [..., N, H].
 
     ``dtype=jnp.bfloat16`` runs the block einsums and returns h1 in bf16
-    (MAPPOConfig.structured_bf16): halves both the MXU passes and the HBM
-    traffic of the [M, N, H] activations that dominate the N=243 update
-    (RESULTS.md r5 decomposition).  Positions are O(1)-scaled, so bf16's
+    (MAPPOConfig.structured_bf16): halves the matrix-unit work and the
+    memory traffic of the [M, N, H] activations that dominate the N=243
+    update.  Positions are O(1)-scaled, so bf16's
     8-bit mantissa costs ~3 decimal digits on h1 — a training-math change,
     default off.
     """
@@ -74,18 +73,17 @@ def hd_actor_h1(W: Array, b: Array, apos, avel, ishape, ivel, dtype=None) -> Arr
         )
         b = b.astype(dtype)
     Wv, Wr, Ws, Wi = _split_actor_w(W, n)
-    # prefix + suffix in ONE triangle (r5).  The running sums are triangular
-    # MATMULS, not jnp.cumsum: on TPU cumsum lowers to an N-step sequential
-    # scan (measured ~39 ms/step of the N=243 collection before r4's
-    # triangle form).  r4 used two triangles (P1_i = Σ_{k<i} a_k with
-    # a_k = p_k@W̃[k], and S1_i = Σ_{j≥i} b'_j with b'_j = p_{j+1}@W̃[j]);
-    # since S1_i = TOT − Σ_{j<i} b'_j with TOT = Σ_j b'_j,
+    # prefix + suffix in ONE triangle.  The running sums are triangular
+    # matrix products rather than jnp.cumsum, which can lower to an N-step
+    # sequential scan.  With a_k = p_k@W̃[k] and b'_j = p_{j+1}@W̃[j],
+    # P1_i = Σ_{k<i} a_k and S1_i = Σ_{j≥i} b'_j = TOT − Σ_{j<i} b'_j, so
     #     P1_i + S1_i = TOT + Σ_{k<i} (a_k − b'_k)
-    # and a_k − b'_k = (p_k − p_{k+1})@W̃[k] — one slot-block einsum and one
+    # and a_k − b'_k = (p_k − p_{k+1})@W̃[k]: one slot-block einsum and one
     # [N, N-1] triangle contraction instead of two of each.  The triangles
     # are the dominant MACs of the whole N=243 update (96 G/epoch each at
-    # B=1024 in forward alone), so this halves the leading term exactly
-    # (up to f32 reassociation; parity in tests/test_structured_obs.py).
+    # B=1024 in forward alone); this form is exact up to f32 reassociation
+    # (parity in tests/test_structured_obs.py).  These products take the
+    # device's default matmul precision, like the rest of the learner.
     diff = apos[..., : n - 1, :] - apos[..., 1:, :]
     d = jnp.einsum("...kc,kch->...kh", diff, Wr)  # a_k − b'_k
     tot = jnp.einsum("...kc,kch->...h", apos[..., 1:, :], Wr)  # TOT
@@ -116,8 +114,8 @@ def _critic_vu(Wc: Array, n: int):
     Wi_sum = Wb[:, 6 * n - 2 : 6 * n].sum(axis=0)  # [2, H]
     U_i = Wr_i.sum(axis=1)  # [N, 2, H]
     # V_k = Σ_{i>k} A_i[k] + Σ_{i<k} A_i[k−1] — built with masked einsums
-    # and pads only (a diagonal gather here has a scatter for its backward,
-    # which TPUs execute serially; this runs inside jax.grad every epoch)
+    # and pads only (a diagonal gather here would put a scatter in the
+    # backward pass, which runs inside jax.grad every epoch)
     i_idx = jnp.arange(n)[:, None]
     j_idx = jnp.arange(n - 1)[None, :]
     dt = Wr_i.dtype
@@ -149,13 +147,13 @@ def hd_critic_h1(Wc: Array, bc: Array, apos, avel, ishape, ivel) -> Array:
 def _mlp_tail(p_mlp, h1pre, n_layers: int, dtype=None) -> Array:
     """Finish the MLP given the first layer's pre-activation (mirrors
     networks.MLP: Dense → relu per layer, no layer norm)."""
-    h = nn.relu(h1pre)
+    h = jax.nn.relu(h1pre)
     for i in range(1, n_layers):
         d = p_mlp[f"Dense_{i}"]
         k, bi = d["kernel"], d["bias"]
         if dtype is not None:
             k, bi = k.astype(dtype), bi.astype(dtype)
-        h = nn.relu(h @ k + bi)
+        h = jax.nn.relu(h @ k + bi)
     return h
 
 

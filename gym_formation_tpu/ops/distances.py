@@ -2,9 +2,8 @@
 
 These replace the reference's per-pair Python loops and its
 ``scipy.spatial.distance.directed_hausdorff`` calls
-(``/root/reference/formation_gym/envs/formation_hd_env.py:61-75``) with dense
-matrix reductions that XLA maps onto the TPU VPU, and that vmap cleanly over
-an environment batch.
+(``formation_gym/envs/formation_hd_env.py:61-75``) with dense matrix
+reductions that XLA fuses, and that vmap cleanly over an environment batch.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Device mesh + sharding helpers.
 
 The reference's parallelism is OS processes over pipes plus an unused gloo
-all-reduce (SURVEY §2.11).  The TPU-native equivalents: the env batch shards
-over a ``('data',)`` (or ``('data','model')``) mesh axis so the fleet spans
-chips/hosts over ICI/DCN, model parameters optionally shard over 'model'
+all-reduce (SURVEY §2.11).  The equivalents here: the env batch shards over
+a ``('data',)`` (or ``('data','model')``) mesh axis so the fleet spans
+devices and hosts, model parameters optionally shard over 'model'
 (tensor parallelism for wide layers), and gradient reduction is inserted by
 XLA when the jitted train step consumes sharded batches — no explicit
 collectives in user code.

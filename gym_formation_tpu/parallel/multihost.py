@@ -2,10 +2,10 @@
 
 The reference has no real multi-node path (a vestigial gloo all-reduce,
 ``train/maddpg-v2/utils/misc.py:33-46``, and Ray actors in v3 — SURVEY §2.11).
-The TPU-native story: every host runs the SAME program; ``jax.distributed``
-wires the processes, the mesh spans all devices of the pod slice, and the env
-batch shards over it — rollouts are embarrassingly parallel over ICI/DCN and
-learner gradients reduce via the collectives XLA inserts under pjit.
+Here every host runs the SAME program; ``jax.distributed`` wires the
+processes, the mesh spans all devices of every host, and the env batch shards
+over it — rollouts are embarrassingly parallel and learner gradients reduce
+via the collectives XLA inserts under pjit.
 
 Executed in CI by ``tests/test_sharding.py::test_multiprocess_train_step``:
 two OS processes federate over a localhost coordinator (CPU backend, 4
@@ -17,7 +17,7 @@ virtual devices each), run one sharded MAPPO train_step through
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import jax
@@ -30,18 +30,24 @@ def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
-    """Initialize jax.distributed.  On TPU pods all arguments are discovered
-    from the environment; pass them explicitly for CPU/GPU clusters."""
+    """Initialize jax.distributed.  Pass the coordinator, process count and
+    id explicitly: nothing in a CPU or GPU cluster announces them.  When
+    several processes share one host's GPUs, give each its own cards with
+    ``local_device_ids`` (e.g. ``[process_id]`` for one card per process):
+    a JAX process otherwise opens every card of the host and reserves most
+    of each one's memory."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 
 def pod_mesh(tp: int = 1, axis_names: Tuple[str, str] = ("data", "model")):
-    """Global mesh over every device in the pod slice: data-parallel env
+    """Global mesh over every device of every process: data-parallel env
     batch over ``total_devices // tp``, tensor-parallel over ``tp``.
 
     Call after :func:`initialize_multihost`; the same code runs unchanged on

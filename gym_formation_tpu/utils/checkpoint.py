@@ -57,7 +57,7 @@ def restore_raw(path: str, step: Optional[int] = None) -> Any:
     when the consumer doesn't know the saved shapes (e.g. eval restoring a
     policy from a training checkpoint of unknown batch size).  Every leaf is
     restored onto the local default device, so checkpoints written on a
-    different device type (TPU → CPU eval) load cleanly.
+    different device type (GPU → CPU eval) load cleanly.
     """
     import orbax.checkpoint as ocp
 

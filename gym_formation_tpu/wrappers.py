@@ -1,6 +1,6 @@
 """Imperative (stateful) adapters over the functional core.
 
-The TPU-native execution model is functional — explicit ``EnvState``,
+The execution model is functional — explicit ``EnvState``,
 jitted ``reset``/``step``, ``vmap`` over the env batch.  These wrappers
 re-expose the reference's *user-facing* imperative contracts on top of it
 for drop-in migration and for host-side trainers:
@@ -17,7 +17,7 @@ for drop-in migration and for host-side trainers:
   ``{"done": d}`` info workaround (``wrapper.py:72-75``).
 
 Both keep every array op inside jit (one compiled ``step`` / ``reset``)
-so they are safe to drive against the remote TPU backend; the per-step
+so each call is one device dispatch, not hundreds; the per-step
 host↔device hop is inherent to the imperative contract — batch throughput
 lives in :class:`~gym_formation_tpu.env.VecFormationEnv` + ``rollout``.
 """

@@ -1,4 +1,4 @@
-"""Worker process for the multi-process (DCN-analogue) training test.
+"""Worker process for the multi-process training test.
 
 Launched by ``tests/test_sharding.py::test_multiprocess_train_step`` as 2 OS
 processes federating over a localhost coordinator (CPU backend, 4 virtual
@@ -10,7 +10,7 @@ devices each → one 8-device global mesh), and once more as a single
 3. generates its :func:`per_host_batch` slice of the env batch and assembles
    global arrays with :func:`host_local_to_global` / :func:`replicate_global`;
 4. runs jitted MAPPO train_steps — XLA inserts the cross-process gradient
-   collectives (the TPU-native counterpart of the reference's gloo
+   collectives (the counterpart of the reference's gloo
    all-reduce helper, ``train/maddpg-v2/utils/misc.py:33-46``).
 
 Usage: python _mp_worker.py <pid> <nproc> <coordinator> <metrics-out.json>

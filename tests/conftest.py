@@ -1,9 +1,12 @@
-"""Test harness config: force an 8-virtual-device CPU JAX platform.
+"""Test harness config: an 8-virtual-device CPU JAX platform by default.
 
-Multi-chip hardware is not available in CI; sharding tests run on a virtual
-8-device CPU mesh (``--xla_force_host_platform_device_count=8``).  This must
-run before any test module touches a JAX backend; keep it at the top of
-conftest, before other imports that might pull in jax.
+Sharding tests run on a virtual 8-device CPU mesh
+(``--xla_force_host_platform_device_count=8``).  This must run before any
+test module touches a JAX backend; keep it at the top of conftest, before
+other imports that might pull in jax.
+
+``JAX_PLATFORMS=cuda python -m pytest -m gpu tests/`` runs the tests marked
+``gpu`` on a GPU instead; everywhere else they skip.
 """
 
 import os
@@ -21,7 +24,7 @@ os.environ["GFT_COMPILE_CACHE"] = "0"
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 # Parity tests compare against the float64 reference; all float32 code paths
 # pass explicit dtypes, so enabling x64 session-wide is safe.
 jax.config.update("jax_enable_x64", True)

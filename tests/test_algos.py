@@ -6,7 +6,11 @@ import jax
 import jax.numpy as jnp
 
 import gym_formation_tpu as ft
-from gym_formation_tpu.algos import (
+
+# the off-policy learners build their networks with flax (an optional extra)
+pytest.importorskip("flax")
+
+from gym_formation_tpu.algos import (  # noqa: E402
     MADDPG,
     MADDPGConfig,
     MAPPO,

@@ -7,7 +7,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from flax.serialization import to_state_dict
 
 import gym_formation_tpu as ft
 from gym_formation_tpu.algos.registry import (
@@ -36,6 +35,23 @@ FAST_SETS = {
 }
 
 
+def _state_dict(x):
+    """Plain nested dicts of a pytree of dataclasses and namedtuples, keyed
+    by field name: the containers a template-free checkpoint restore
+    gives back."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x):
+        return {f.name: _state_dict(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if hasattr(x, "_fields"):
+        return {k: _state_dict(v) for k, v in zip(x._fields, x)}
+    if isinstance(x, dict):
+        return {k: _state_dict(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_state_dict(v) for v in x)
+    return x
+
+
 @pytest.mark.parametrize("name", ALGO_NAMES)
 def test_eval_policy_for_every_algo(name, key):
     """init → state-dict (the restore_raw view) → greedy policy → actions of
@@ -46,7 +62,7 @@ def test_eval_policy_for_every_algo(name, key):
     )
     algo = make_algo(name, env, num_envs=2, sets=FAST_SETS[name])
     state = algo.init(key)
-    ts_raw = to_state_dict(state[0])  # what restore_raw returns for element 0
+    ts_raw = _state_dict(state[0])  # what restore_raw returns for element 0
 
     B = 2
     policy, carry = eval_policy(name, algo, ts_raw, batch_size=B)

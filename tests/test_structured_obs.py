@@ -129,22 +129,6 @@ def test_grad_accum_and_remat_match_plain_update():
             )
 
 
-def test_fused_update_defers_auto_structured():
-    """ADVICE r4: MAPPOConfig(fused_update=True) on hd at N>=32 must fall
-    back to the obs path (auto-structured defers), not raise."""
-    env = ft.make_env("formation_hd_env", num_agents=81)
-    algo = MAPPO(env, MAPPOConfig(fused_update=True), num_envs=4)
-    assert not algo.structured_obs
-    import pytest
-
-    with pytest.raises(AssertionError):  # forcing both still refuses
-        MAPPO(
-            env,
-            MAPPOConfig(fused_update=True, structured_obs=True),
-            num_envs=4,
-        )
-
-
 def test_structured_bf16_forward_close():
     """structured_bf16 is a flagged precision change: the bf16 actor
     forward tracks the f32 one to bf16 tolerance."""
@@ -164,8 +148,7 @@ def test_structured_bf16_forward_close():
 @pytest.mark.skipif(
     os.environ.get("GFT_RUN_BF16_TRAIN", "0") != "1",
     reason="the bf16 train_step segfaults XLA:CPU's compiler in long "
-    "suite sessions (passes standalone and on TPU — RESULTS.md r5 "
-    "measured the A/B there); set GFT_RUN_BF16_TRAIN=1 to run",
+    "suite sessions (passes standalone); set GFT_RUN_BF16_TRAIN=1 to run",
 )
 def test_structured_bf16_train_close_and_learns():
     """One full bf16 iteration's metrics stay within tolerance of the f32

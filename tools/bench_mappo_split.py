@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Split-time the MAPPO train iteration: collection scan vs PPO update.
 
-Grounds the VERDICT r2 item-4 work (closing the bench-vs-training gap at
-small N): before fusing anything, measure where the 16.9 ms/iter actually
-goes.  Honest timing per CLAUDE.md: pipelined windows closed by a host
-value fetch of a run-dependent quantity, finiteness asserted.
+Measures where a training iteration's time goes before anything is fused.
+Honest timing: pipelined windows closed by a host value fetch
+of a run-dependent quantity, finiteness asserted.
 
 Usage: python tools/bench_mappo_split.py [-n 3] [-B 1024] [--iters 32]
 """
@@ -58,16 +57,9 @@ def _timeit(tag, fn, fetch, iters):
 def update_decomp(algo, ts, es, obs, key, iters):
     """Decompose the PPO update by deliberate DCE (the technique of
     tools/exp_step_decomp.py): each probe jits only a sub-pipeline of the
-    epoch and fetches a checksum data-dependent on exactly that much.
-    VERDICT r4 task 2a: the 743 ms N=243 update was 94% of the training
-    iteration with no decomposition."""
+    epoch and fetches a checksum data-dependent on exactly that much."""
     cfg = algo.cfg
-    if algo.structured_obs:
-        collect_fn = algo._collect_structured
-    elif algo.fused_collect:
-        collect_fn = algo._collect_fused
-    else:
-        collect_fn = algo._collect
+    collect_fn = algo._collect_structured if algo.structured_obs else algo._collect
     es, obs, traj, _, last_v = jax.jit(
         lambda es, obs: collect_fn(ts, es, obs, key)
     )(es, obs)
@@ -237,14 +229,10 @@ def main():
     p.add_argument("-n", "--num-agents", type=int, default=3)
     p.add_argument("-B", "--num-envs", type=int, default=1024)
     p.add_argument("--iters", type=int, default=32)
-    p.add_argument("--fused", action="store_true",
-                   help="fused-collection kernel (ops/pallas/fused_collect)")
-    p.add_argument("--fused-update", action="store_true",
-                   help="fused PPO-grad kernel (ops/pallas/fused_ppo_grad)")
     p.add_argument("--decomp", action="store_true",
                    help="decompose the PPO update itself (GAE/prep, actor "
                    "fwd, actor fwd+bwd, critic fwd+bwd, optimizer) via "
-                   "deliberate DCE — VERDICT r4 task 2a")
+                   "deliberate DCE")
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--remat", action="store_true")
     p.add_argument("--bf16", action="store_true",
@@ -256,7 +244,6 @@ def main():
     algo = MAPPO(
         env,
         MAPPOConfig(
-            fused_collect=args.fused, fused_update=args.fused_update,
             grad_accum=args.grad_accum, remat=args.remat,
             structured_bf16=args.bf16,
         ),
@@ -294,14 +281,9 @@ def main():
 
     # collection only — fresh tuple (the full phase donated the first one);
     # mirror the path train_step actually resolved (structured_obs auto-on
-    # at N>=32 replaces both scan and fused collect)
+    # at N>=32 replaces the obs-storing scan)
     ts, es, obs = algo.init(jax.random.PRNGKey(0))
-    if algo.structured_obs:
-        collect_fn = algo._collect_structured
-    elif algo.fused_collect:
-        collect_fn = algo._collect_fused
-    else:
-        collect_fn = algo._collect
+    collect_fn = algo._collect_structured if algo.structured_obs else algo._collect
 
     @_partial(jax.jit, donate_argnums=(0,))
     def collect(carry):

@@ -3,7 +3,7 @@
 
 Fixes a per-device env count and sweeps data-parallel mesh sizes 1..D,
 reporting throughput and efficiency vs the 1-device run.  On real hardware
-the mesh spans chips/hosts over ICI/DCN; in CI it runs on virtual CPU devices
+the mesh spans devices and hosts; in CI it runs on virtual CPU devices
 (``--force-cpu-devices N``) to validate the mechanism (the reference has no
 multi-node test story at all — SURVEY §4/§5).
 

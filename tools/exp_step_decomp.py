@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Decompose the N=243 bfs_state rollout step cost on TPU.
+"""Decompose the N=243 bfs_state rollout step cost on the device.
 
 Variants exploit XLA dead-code elimination *deliberately*: fetching only a
 state checksum drops the reward pipeline; replacing the BFS policy with a

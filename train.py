@@ -87,9 +87,17 @@ def main():
     )
     p.add_argument(
         "--multihost", action="store_true",
-        help="initialize jax.distributed first (TPU pod slices: coordinator "
-        "discovered from the environment); every host runs this same "
+        help="initialize jax.distributed first, from --coordinator, "
+        "--num-processes and --process-id; every process runs this same "
         "command and --mesh spans the global device set",
+    )
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument(
+        "--local-device-ids", default=None, metavar="I[,J...]",
+        help="the GPUs of this host that this process takes (one process "
+        "per card: its own index); default: every local device",
     )
     p.add_argument(
         "--benchmark", action="store_true",
@@ -113,7 +121,13 @@ def main():
     if args.multihost:
         from gym_formation_tpu.parallel import initialize_multihost
 
-        initialize_multihost()
+        initialize_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            local_device_ids=(
+                [int(i) for i in args.local_device_ids.split(",")]
+                if args.local_device_ids else None
+            ),
+        )
 
     if args.discrete_action and args.algo not in (
         "maddpg", "ddpg", "matd3", "masac", "mappo", "rmappo",
